@@ -1,8 +1,7 @@
 """A/B probe: banded dynamic-window respelling of the composed transpose.
 
 The rows-form transpose gathers ~209k single rows of vt [n_out≈9k, Q≈24]
-per band-pointing; every gathered row pads to a 128-lane tile, making
-win_a 66% of the flagship app's HBM bytes (PERF.md roofline).  But the
+per band-pointing, each a separate small memory transaction.  But the
 tap sources are near-monotone in the destination row (gather_locality_
 probe: median step 1, 86% of steps <8), so blocks of T_b consecutive
 destination rows read from a narrow src window.  This respells the local
@@ -92,7 +91,9 @@ def main():
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.simulation.flagship import make_flagship_setup, make_flagship_model

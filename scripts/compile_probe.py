@@ -1,9 +1,9 @@
-"""Compile-time probe of the 12-band flagship model (VERDICT r1 item 2).
+"""Compile-time probe of the 12-band flagship model.
 
 Builds the real-MIRI multi-band fusion operator and times the XLA compile of
-the jitted forward and hand-optimized adjoint.  The round-1 structure (Python
-unroll of slits × pointings × channels) made the 12-band adjoint a ~30-min
-XLA-CPU compile; the scanned/batched pipeline must bring this to O(minutes).
+the jitted forward and hand-optimized adjoint.  A Python unroll of slits ×
+pointings × channels made the 12-band adjoint a ~30-min XLA-CPU compile;
+the scanned/batched pipeline brings this to O(minutes).
 
 Usage:
     python scripts/compile_probe.py [--bands 1a,2a,...|all] [--npix 101]

@@ -1,6 +1,6 @@
 """Stage-by-stage parity diagnosis: our Channel vs the reference Channel.
 
-Localizes where the forward outputs diverge (VERDICT r1 item 4): gridding,
+Localizes where the forward outputs diverge: gridding,
 SRF convolution, slit windows + weights, spectral blur.  Run on CPU:
 
     python scripts/diag_parity.py

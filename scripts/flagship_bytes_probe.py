@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Per-channel HBM-traffic probe of the flagship fused normal operator.
+"""Per-channel memory-traffic probe of the flagship fused normal operator.
 
 For each band, lowers the fused per-channel normal (adjoint∘forward,
 tables-as-arguments) and prints XLA's bytes-accessed / flops next to the
-measured time — locating where the ~32 GB/application of HBM traffic
-(bench `bytes_per_app`) concentrates and how close each channel runs to
-the 819 GB/s v5e roofline.
+measured time — locating where the memory traffic (bench
+`bytes_per_app_modeled`) concentrates and how close each channel runs to
+the device's published memory bandwidth (bench.PEAKS).
 
     python scripts/flagship_bytes_probe.py [--bands 1a,1b,...] [--pointings 4]
 """
@@ -19,8 +19,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-V5E_HBM_BW = 819e9
-
 
 def main():
     ap = argparse.ArgumentParser()
@@ -31,15 +29,19 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
+    from bench import device_peaks
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
+
+    hbm_bw = device_peaks(jax.devices()[0].device_kind)["hbm_bytes_per_s"]
 
     from surfh_tpu.simulation.flagship import make_flagship_model, make_flagship_setup
     from surfh_tpu.utils.profiling import chained_time
@@ -67,7 +69,7 @@ def main():
         gflop = float(ca["flops"]) / 1e9
         dt = chained_time(lambda x: nrm(x, tables), maps,
                           chain=args.chain, reps=args.reps)
-        util = gb * 1e9 / dt / V5E_HBM_BW
+        util = gb * 1e9 / dt / hbm_bw
         rows.append({"band": chan.instr.name, "ms": round(dt * 1e3, 2),
                      "GB": round(gb, 3), "GFLOP": round(gflop, 1),
                      "hbm_util": round(util, 3)})
@@ -77,7 +79,7 @@ def main():
               f"{gflop:8.1f} GFLOP  hbm_util={util:.2f}", flush=True)
     print(json.dumps({"rows": rows, "total_GB": round(total_b, 2),
                       "total_ms": round(total_t * 1e3, 1),
-                      "agg_hbm_util": round(total_b * 1e9 / total_t / V5E_HBM_BW, 3)}))
+                      "agg_hbm_util": round(total_b * 1e9 / total_t / hbm_bw, 3)}))
 
 
 if __name__ == "__main__":

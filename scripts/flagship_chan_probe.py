@@ -1,4 +1,4 @@
-"""Time one channel's fused tabled fwd/adj/normal at flagship scale on TPU.
+"""Time one channel's fused tabled fwd/adj/normal at flagship scale on the device.
 
     python scripts/flagship_chan_probe.py [--band 1c] [--rtol 1e-6]
 """
@@ -23,8 +23,9 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     from surfh_tpu.simulation.flagship import make_flagship_model, make_flagship_setup
 
@@ -81,7 +82,7 @@ def main():
 
         # under the flagship default (rank mode + host materialize) the raw
         # wpsf is dropped from the tables (spectro.py); fall back to the
-        # channel's device copy so --stages keeps working (ADVICE r3)
+        # channel's device copy so --stages keeps working
         def _wpsf(t):
             return t["wpsf"] if "wpsf" in t else chan._wpsf_dev
 

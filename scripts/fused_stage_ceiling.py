@@ -1,7 +1,7 @@
 """TRUE fused-stage costs of the flagship channel normal via stage stubbing.
 
 Isolated per-op timings (flagship_breakdown.py) overstate: XLA overlaps
-the memory ops (gather/scatter) with the MXU ops (conv/wblur GEMMs) inside
+the memory ops (gather/scatter) with the matmul ops (conv/wblur GEMMs) inside
 the fused program.  This probe times the fused channel normal repeatedly,
 each time monkeypatching ONE stage to a shape-correct O(small) stub that
 keeps the dataflow alive — the delta vs stock is that stage's true
@@ -25,8 +25,9 @@ def main():
     args = ap.parse_args()
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.core import bilinear, fft, wblur

@@ -1,12 +1,12 @@
 """Is the adjoint window transpose's gather cost index-pattern-bound?
 
-The flagship roofline (PERF.md) shows win_a — the rows-form composed
-transpose — modeled at 18 GB of the app's 36 GB: XLA charges every
-gathered row of vt [n_out, Q≈20-24 f32] a full aligned tile.  Whether the
-REAL DMA traffic depends on index locality decides if a renumbering of
-the accumulator rows (sorting taps by source) is a ~1.7x app-level lever
-or a no-op.  This probe times `jnp.take(vt, src, axis=0)` + the bucket
-einsum on the TPU with the ACTUAL flagship plan indices vs sorted /
+XLA's cost model charges every gathered row of vt [n_out, Q≈20-24 f32] of
+win_a — the rows-form composed transpose — a full aligned memory
+transaction.  Whether the REAL memory traffic depends on index locality
+decides if a renumbering of the accumulator rows (sorting taps by source)
+is an app-level lever or a no-op.  This probe times
+`jnp.take(vt, src, axis=0)` + the bucket einsum on the device with the
+ACTUAL flagship plan indices vs sorted /
 random / sequential controls, at the real Q and at Q=128 (lane-filling
 control).
 
@@ -49,7 +49,9 @@ def main():
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.simulation.flagship import make_flagship_setup, make_flagship_model
@@ -79,7 +81,7 @@ def main():
             {"shape": list(src_g.shape), "stats": locality_stats(flat)}
         )
 
-    # --- TPU timing: bucket-0 pattern vs controls ------------------------
+    # --- device timing: bucket-0 pattern vs controls ---------------------
     src0 = buckets[0][0]
     wgt0 = buckets[0][1].astype(np.float32)
     rng = np.random.default_rng(0)

@@ -1,9 +1,9 @@
 """Does the layered-prefix composed transpose help the FUSED channel normal?
 
-scripts/scatter_bench.py measured the layered-prefix spelling (pixels
+scripts/scatter_bench.py times the layered-prefix spelling (pixels
 statically sorted by segment length; layer k is a dense prefix add of a
-row-gather; one final take unpermutes) at 3.53 ms vs the stock sorted-COO
-scatter's 4.06 isolated.  This probe checks whether that ~13% survives
+row-gather; one final take unpermutes) against the stock sorted-COO
+scatter in isolation.  This probe checks whether a difference survives
 XLA's overlap inside the fused normal, by monkeypatching
 `apply_composed_plan_t` with a layered implementation built from the real
 per-pointing plans (discriminated by trace-time call order).
@@ -39,8 +39,9 @@ def main():
     args = ap.parse_args()
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.core import bilinear

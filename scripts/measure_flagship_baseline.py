@@ -10,8 +10,8 @@ reads so the driver's bench run doesn't pay an hours-long CPU measurement.
     python scripts/measure_flagship_baseline.py [--reps 1] [--bands ...]
 
 The measurement config (thread count, BLAS, dtype, reps) is recorded next
-to the number; VERDICT round-1 asked for a pinned baseline instead of the
-4×-swinging in-process one.
+to the number: a pinned baseline instead of an in-process one that swung
+4× between runs.
 """
 
 import argparse

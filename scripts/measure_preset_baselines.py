@@ -3,8 +3,7 @@
 Runs the reference-equivalent serial NumPy path (surfh_tpu.core.numpy_ref) on
 each preset's problem and records the median fwd+adjoint wall time in
 baseline_cpu.json, so no bench invocation ever re-measures a CPU baseline
-in-process (VERDICT r3 item 4: `bench.py:275-287` used to spend minutes of
-CPU per run re-measuring these).
+in-process.
 
     python scripts/measure_preset_baselines.py [--presets small,medium,large]
                                                [--reps 3]

@@ -17,7 +17,7 @@ precision.  Reference wall times at this scale: fwd 1326 s, adj 23 s
 XLA CPU) — which is why the suite's default parity tests run at 41² and
 this scale is script/env-gated (SURFH_SLOW_PARITY=1 enables the test).
 
-Reference arrays are cached under /tmp/parity_*.npy for re-runs.
+Reference arrays are cached under .surfh_cache/parity/ for re-runs.
 """
 
 import os
@@ -32,6 +32,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import dataclasses
 
 import numpy as np
+
+from surfh_tpu.utils.cache import cache_dir
 
 
 def build_pair(npix=251, band_name="2a", n_pointings=2, subsample=3,
@@ -87,13 +89,14 @@ def main():
     rng = np.random.default_rng(0)
     cube = rng.standard_normal(ours.ishape)
 
-    if os.path.exists("/tmp/parity_yref.npy"):
-        y_ref = np.load("/tmp/parity_yref.npy")
+    if os.path.exists(os.path.join(cache_dir("parity"), "yref.npy")):
+        y_ref = np.load(os.path.join(cache_dir("parity"), "yref.npy"))
     else:
         t0 = time.time()
         y_ref = np.asarray(ref_chan.forward(cube))
         print(f"ref fwd {time.time()-t0:.1f}s", flush=True)
-        np.save("/tmp/parity_yref.npy", y_ref)
+        os.makedirs(cache_dir("parity"), exist_ok=True)
+        np.save(os.path.join(cache_dir("parity"), "yref.npy"), y_ref)
     t0 = time.time()
     y_ours = np.asarray(ours.forward(cube)).reshape(y_ref.shape)
     print(f"our fwd {time.time()-t0:.1f}s", flush=True)
@@ -101,13 +104,14 @@ def main():
           flush=True)
 
     yr = rng.standard_normal(tuple(ref_chan.oshape))
-    if os.path.exists("/tmp/parity_aref.npy"):
-        a_ref = np.load("/tmp/parity_aref.npy")
+    if os.path.exists(os.path.join(cache_dir("parity"), "aref.npy")):
+        a_ref = np.load(os.path.join(cache_dir("parity"), "aref.npy"))
     else:
         t0 = time.time()
         a_ref = np.asarray(ref_chan.adjoint(yr))
         print(f"ref adj {time.time()-t0:.1f}s", flush=True)
-        np.save("/tmp/parity_aref.npy", a_ref)
+        os.makedirs(cache_dir("parity"), exist_ok=True)
+        np.save(os.path.join(cache_dir("parity"), "aref.npy"), a_ref)
     t0 = time.time()
     a_ours = np.asarray(ours.adjoint_interp(yr))
     print(f"our adjoint_interp {time.time()-t0:.1f}s", flush=True)

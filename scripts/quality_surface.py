@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Reconstruction-quality SURFACE at the flagship config (VERDICT r4 1b).
+"""Reconstruction-quality SURFACE at the flagship config.
 
-The round-4 record held one fidelity data point (rel-err 24.78% at one
-µ, noiseless, random maps — a scene hostile to the smoothness prior).
-This sweeps the whole surface on the real 12-band × 4-pointing × 501²
+One fidelity data point (one µ, noiseless, random maps — a scene hostile to
+the smoothness prior) says little.  This sweeps the whole surface on the real 12-band × 4-pointing × 501²
 problem: {Orion-bar, NGC 7023 stand-in} scenes × noise levels × a µ grid
 spanning 5e2–5e8 (the reference's production range: µ=5e3 flagship runs,
 5e8 real-data deep runs — fusion_real_data_multi_chan.py:389,443), each
@@ -45,8 +44,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.simulation.data import synthetic_ngc7023, synthetic_orion
@@ -54,6 +54,7 @@ def main():
         make_flagship_model,
         make_flagship_setup,
     )
+    from surfh_tpu.config import platform_policy
     from surfh_tpu.solvers.criterion import dtd_separated
     from surfh_tpu.utils import metrics
 
@@ -64,7 +65,7 @@ def main():
     bands = args.bands.split(",") if args.bands else None
     setup = make_flagship_setup(
         npix=args.npix, bands=bands, n_pointings=args.pointings,
-        build_sotf=(jax.default_backend() != "tpu"),
+        build_sotf=platform_policy().conv_impl == "fft",
     )
     model, _ = make_flagship_model(setup)
     n_tpl = model.templates.shape[0]

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Flagship-scale fidelity audit of the λ-rank factorized conv (VERDICT r2
-item 3): measure, ON TPU at the full 12-band scale, the dense-vs-rank
+"""Flagship-scale fidelity audit of the λ-rank factorized conv: measure, on
+the device at the full 12-band scale, the dense-vs-rank
 forward/adjoint deviation and the CG solution delta for the shipped
 `conv_rank_rtol`, against the recorded SVD tails.
 
-Phases (run separately to bound process HBM/RAM):
+Phases (run separately to bound process device memory/RAM):
 
     python scripts/rank_fidelity_audit.py --phase deviation
     python scripts/rank_fidelity_audit.py --phase cg --rank-mode rank
     python scripts/rank_fidelity_audit.py --phase cg --rank-mode dense
 
-Results are appended to /tmp/surfh_r3/rank_audit.json; the CG phases save
-solutions to /tmp/surfh_r3/x_{rank,dense}.npy for the cross-comparison.
+Results are appended to .surfh_cache/rank_audit/rank_audit.json; the CG
+phases save solutions to .surfh_cache/rank_audit/x_{rank,dense}.npy for the
+cross-comparison.
 """
 
 import argparse
@@ -24,7 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-OUT = "/tmp/surfh_r3/rank_audit.json"
+from surfh_tpu.utils.cache import cache_dir
+
+OUT = os.path.join(cache_dir("rank_audit"), "rank_audit.json")
 
 
 def _record(update: dict):
@@ -49,8 +52,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.simulation.flagship import (
@@ -139,7 +143,7 @@ def main():
     )
     dt = time.time() - t0
     x = np.asarray(res.x)
-    np.save(f"/tmp/surfh_r3/x_{args.rank_mode}.npy", x)
+    np.save(os.path.join(cache_dir("rank_audit"), f"x_{args.rank_mode}.npy"), x)
     upd = {
         f"cg_{args.rank_mode}": {
             "niter": int(res.n_iter),
@@ -149,7 +153,9 @@ def main():
             "grad_norm_final": float(res.grad_norm[-1]),
         }
     }
-    other = f"/tmp/surfh_r3/x_{'dense' if args.rank_mode == 'rank' else 'rank'}.npy"
+    other = os.path.join(
+        cache_dir("rank_audit"),
+        f"x_{'dense' if args.rank_mode == 'rank' else 'rank'}.npy")
     if os.path.exists(other):
         xo = np.load(other)
         upd["cg_cross"] = {

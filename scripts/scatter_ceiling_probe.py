@@ -23,8 +23,9 @@ def main():
     args = ap.parse_args()
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/surfh_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from surfh_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from surfh_tpu.core import bilinear

@@ -7,8 +7,8 @@ threshold, the banded form's bandwidth LB vs the full window W, the FLOP
 ratio vs the dense contraction, and the truncated mass (the error bound of
 the banded product).
 
-This answers VERDICT round-1 item 6: whether the banded Pallas kernel is a
-default win on the real tables rather than only on synthetic windows.
+It answers whether the banded spelling (core/wblur_banded.py) is a default
+win on the real tables rather than only on synthetic windows.
 
     python scripts/wpsf_density.py [--npix 121] [--bands 1a,...]
 """
@@ -37,7 +37,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from surfh_tpu.core.wblur_pallas import build_band_plan
+    from surfh_tpu.core.wblur_banded import build_band_plan
     from surfh_tpu.instrument import miri
     from surfh_tpu.instrument.geometry import CoordList, get_srf
     from surfh_tpu.models.channel import Channel

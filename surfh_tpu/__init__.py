@@ -1,6 +1,6 @@
-"""surfh_tpu — TPU-native super-resolution and fusion for hyperspectral images.
+"""surfh_tpu — super-resolution and fusion for hyperspectral images in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of `sidiso/surfh`
+A ground-up JAX/XLA re-design of the capabilities of `sidiso/surfh`
 (JWST MIRI MRS super-resolved reconstruction and multi-band fusion):
 
 * a physical linear instrument model ``y = Σ R L S C T x`` with exact adjoints,

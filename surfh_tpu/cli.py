@@ -10,163 +10,138 @@ Usage:
     python -m surfh_tpu.cli fusion --simulated -ni 50 -hp 5e3 -m lcg
     python -m surfh_tpu.cli deconv2d --niter 200
     python -m surfh_tpu.cli info
+
+Every command prints one JSON object on stdout; logs go to stderr.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
+import sys
 import time
 
-import click
 import numpy as np
 
 logger = logging.getLogger("surfh_tpu")
 
 
-@click.group()
-def cli():
-    """surfh_tpu — TPU-native JWST MRS super-resolution and fusion.
-
-    Set SURFH_CPU=1 to force the CPU backend (e.g. for local dry runs)."""
-    if os.environ.get("SURFH_CPU"):
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+class UsageError(Exception):
+    """A command-line usage error (reported with the usage line, exit 2)."""
 
 
-@cli.command()
-@click.option("--fusion-data", "-fd", type=click.Path(exists=True), default=None,
-              help="Directory with templates.npy / wavel_axis.npy / psfs_*.npy and slice data (real-data mode).")
-@click.option("--simulated", is_flag=True, help="Run a fully simulated fusion (no data files needed).")
-@click.option("--npix", "-np", "npix", default=81, show_default=True, help="Spatial grid size.")
-@click.option("--n-lambda", default=60, show_default=True, help="Cube λ samples (simulated mode).")
-@click.option("--channels", "-nc", default=2, show_default=True, help="Number of bands (simulated mode).")
-@click.option("--pointings", default=2, show_default=True, help="Dither pointings (simulated mode).")
-@click.option("--hyper-parameter", "-hp", default=5e3, show_default=True, help="Regularization µ.")
-@click.option("--niter", "-ni", default=50, show_default=True)
-@click.option("--n-templates", "-nt", default=4, show_default=True)
-@click.option("--scale-data", "-sd", is_flag=True, help="Apply Jy/SR → Jy flux normalization (real data).")
-@click.option("--method", "-m", default="lcg", type=click.Choice(["lcg", "mmmg"]), show_default=True)
-@click.option("--noise-snr", default=0.0, show_default=True, help="Add white noise at this SNR (dB) to simulated data.")
-@click.option("--sharded", is_flag=True, help="Shard channels over the device mesh.")
-@click.option("--checkpoint-every", default=0, show_default=True, help="Checkpoint the solver state every N iterations.")
-@click.option("--output-dir", "-o", default="./surfh_results", show_default=True)
-@click.option("--verbose", "-v", is_flag=True)
-def fusion(fusion_data, simulated, npix, n_lambda, channels, pointings,
-           hyper_parameter, niter, n_templates, scale_data, method,
-           noise_snr, sharded, checkpoint_every, output_dir, verbose):
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _existing_path(value: str) -> str:
+    if not os.path.exists(value):
+        raise argparse.ArgumentTypeError(f"path {value!r} does not exist")
+    return value
+
+
+# --------------------------------------------------------------------------
+# commands
+def fusion(args):
     """Multi-channel multi-observation LMM fusion (the flagship run)."""
     from .simulation.synthetic import make_model
     from .solvers.checkpoint import run_checkpointed
     from .solvers.criterion import QuadCriterion_MRS
     from .utils import metrics
 
-    logging.basicConfig(level=logging.DEBUG if verbose else logging.INFO,
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    os.makedirs(output_dir, exist_ok=True)
+    os.makedirs(args.output_dir, exist_ok=True)
 
-    if not simulated and fusion_data is None:
-        raise click.UsageError("provide --fusion-data DIR or --simulated")
-    if not simulated:
+    if not args.simulated and args.fusion_data is None:
+        raise UsageError("provide --fusion-data DIR or --simulated")
+    if not args.simulated:
         from .pipeline import run_real_fusion
 
         bands = sorted(
-            {f.split("_")[0].lower() for f in os.listdir(os.path.join(fusion_data, "Filtered_slices")) if f.endswith(".fits")}
+            {f.split("_")[0].lower() for f in os.listdir(os.path.join(args.fusion_data, "Filtered_slices")) if f.endswith(".fits")}
         )
         logger.info("real-data fusion: bands %s", bands)
         res, model = run_real_fusion(
-            fusion_data, bands, npix=npix, mu=hyper_parameter, niter=niter,
-            method=method, scale_data=scale_data, output_dir=output_dir,
-            checkpoint_every=checkpoint_every,
+            args.fusion_data, bands, npix=args.npix, mu=args.hyper_parameter,
+            niter=args.niter, method=args.method, scale_data=args.scale_data,
+            output_dir=args.output_dir, checkpoint_every=args.checkpoint_every,
         )
-        click.echo(json.dumps({"method": method, "niter": int(res.n_iter),
-                               "final_grad_norm": float(res.grad_norm[-1])}))
+        _emit({"method": args.method, "niter": int(res.n_iter),
+               "final_grad_norm": float(res.grad_norm[-1])})
         return
 
     logger.info("building simulated model: %d² grid, %dλ, %d bands, %d pointings",
-                npix, n_lambda, channels, pointings)
+                args.npix, args.n_lambda, args.channels, args.pointings)
     model, setup = make_model(
-        im_size=npix, n_lambda=n_lambda, n_tpl=n_templates,
-        n_channels=channels, n_pointings=pointings,
+        im_size=args.npix, n_lambda=args.n_lambda, n_tpl=args.n_templates,
+        n_channels=args.channels, n_pointings=args.pointings,
     )
     truth = np.asarray(setup["maps"], np.float32)
     t0 = time.perf_counter()
     y = np.asarray(model.forward(truth))
-    if noise_snr > 0:
+    if args.noise_snr > 0:
         rng = np.random.default_rng(0)
-        sigma = np.sqrt(np.mean(y**2) / 10 ** (noise_snr / 10))
+        sigma = np.sqrt(np.mean(y**2) / 10 ** (args.noise_snr / 10))
         y = y + rng.normal(0, sigma, y.shape).astype(y.dtype)
     logger.info("data synthesized in %.2fs (%d samples)", time.perf_counter() - t0, y.size)
 
     t0 = time.perf_counter()
-    if sharded:
+    if args.sharded:
         from .parallel.fusion import ShardedSpectro, make_mesh
 
         sh = ShardedSpectro(model, make_mesh())
-        res = sh.solve(y, mu_reg=hyper_parameter, max_iter=niter, method=method)
+        res = sh.solve(y, mu_reg=args.hyper_parameter, max_iter=args.niter,
+                       method=args.method)
     else:
-        crit = QuadCriterion_MRS(1.0, y, model, hyper_parameter, printing=verbose)
+        crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter,
+                                 printing=args.verbose)
         res = run_checkpointed(
-            crit, method=method, niter=niter,
-            checkpoint_path=os.path.join(output_dir, "solver_state.npz"),
-            checkpoint_every=checkpoint_every,
+            crit, method=args.method, niter=args.niter,
+            checkpoint_path=os.path.join(args.output_dir, "solver_state.npz"),
+            checkpoint_every=args.checkpoint_every,
         )
     dt = time.perf_counter() - t0
-    logger.info("%s: %d iterations in %.2fs (%.2f it/s)", method, res.n_iter, dt,
-                res.n_iter / max(dt, 1e-9))
+    logger.info("%s: %d iterations in %.2fs (%.2f it/s)", args.method,
+                res.n_iter, dt, res.n_iter / max(dt, 1e-9))
 
     res_cube = np.asarray(model.mapsToCube(res.x))
-    np.save(os.path.join(output_dir, "res_x.npy"), res.x)
-    np.save(os.path.join(output_dir, "res_cube.npy"), res_cube)
-    np.save(os.path.join(output_dir, "criterion.npy"), res.grad_norm)
+    np.save(os.path.join(args.output_dir, "res_x.npy"), res.x)
+    np.save(os.path.join(args.output_dir, "res_cube.npy"), res_cube)
+    np.save(os.path.join(args.output_dir, "criterion.npy"), res.grad_norm)
 
-    report = {
-        "method": method,
+    _emit({
+        "method": args.method,
         "niter": int(res.n_iter),
         "seconds": dt,
         "iters_per_s": res.n_iter / max(dt, 1e-9),
         "psnr_maps": metrics.psnr(truth, res.x),
         "relative_error_pct": metrics.relative_error(truth, res.x),
-    }
-    click.echo(json.dumps(report))
+    })
 
 
-@cli.command("deconv-cube")
-@click.option("--npix", "-np", default=81, show_default=True)
-@click.option("--n-lambda", "-nl", default=24, show_default=True,
-              help="λ planes in the deconvolved stack.")
-@click.option("--hyper-parameter", "-hp", default=5.0, show_default=True)
-@click.option("--niter", "-ni", default=100, show_default=True)
-@click.option("--pointings", default=2, show_default=True,
-              help="Dither pointings (the reference run keeps [P1, P3]).")
-@click.option("--rectangle/--rotated", default=True, show_default=True,
-              help="Rectangle (no-rotation) or rotated-FOV gridding.")
-@click.option("--output-dir", "-o", default="./surfh_results", show_default=True)
-def deconv_cube(npix, n_lambda, hyper_parameter, niter, pointings, rectangle,
-                output_dir):
+def deconv_cube(args):
     """λ-stack no-rotation cube deconvolution (BASELINE config 2, reference
     scripts/deconvolution_mrs_noRotation.py semantics: rectangle-gridded
     MRSBlurred per λ plane, quadratic criterion, lcg) — all planes batched
     into one vmapped program and solved in a single CG."""
-    import jax.numpy as jnp
-
     from .core.fft import ir2fr
     from .models.blind2d import DeconvCube, MRSBlurred, MRSBlurredRectangle
     from .simulation.synthetic import make_setup
     from .solvers.criterion import QuadCriterion_MRS
     from .utils import metrics
 
-    os.makedirs(output_dir, exist_ok=True)
+    npix, n_lambda = args.npix, args.n_lambda
+    os.makedirs(args.output_dir, exist_ok=True)
     setup = make_setup(
-        im_size=npix, n_lambda=n_lambda, n_channels=1, n_pointings=pointings
+        im_size=npix, n_lambda=n_lambda, n_channels=1, n_pointings=args.pointings
     )
     sotf_stack = np.stack(
         [ir2fr(p, setup["im_shape"]) for p in setup["spsf"][:n_lambda]]
     )
-    cls = MRSBlurredRectangle if rectangle else MRSBlurred
+    cls = MRSBlurredRectangle if args.rectangle else MRSBlurred
     base = cls(
         sotf_stack[0],
         setup["alpha_axis"],
@@ -191,28 +166,22 @@ def deconv_cube(npix, n_lambda, hyper_parameter, niter, pointings, rectangle,
     y = np.asarray(model.forward(truth))
 
     t0 = time.perf_counter()
-    crit = QuadCriterion_MRS(1.0, y, model, hyper_parameter, gradient="separated")
-    res = crit.run_method("lcg", maximum_iterations=niter)
+    crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter,
+                             gradient="separated")
+    res = crit.run_method("lcg", maximum_iterations=args.niter)
     dt = time.perf_counter() - t0
 
-    np.save(os.path.join(output_dir, "deconv_cube_x.npy"), res.x)
-    click.echo(json.dumps({
+    np.save(os.path.join(args.output_dir, "deconv_cube_x.npy"), res.x)
+    _emit({
         "n_lambda": n_lambda,
         "niter": int(res.n_iter),
         "seconds": dt,
         "iters_per_s": res.n_iter / max(dt, 1e-9),
         "psnr": metrics.psnr(truth, res.x.reshape(model.ishape)),
-    }))
+    })
 
 
-@cli.command()
-@click.option("--npix", "-np", default=81, show_default=True)
-@click.option("--hyper-parameter", "-hp", default=500.0, show_default=True)
-@click.option("--niter", "-ni", default=200, show_default=True)
-@click.option("--rectangle/--rotated", default=True, show_default=True,
-              help="Rectangle (no-rotation) or rotated-FOV PSF variant.")
-@click.option("--output-dir", "-o", default="./surfh_results", show_default=True)
-def deconv2d(npix, hyper_parameter, niter, rectangle, output_dir):
+def deconv2d(args):
     """Single-wavelength 2-D MRS deconvolution (the minimum end-to-end slice,
     reference scripts/deconvolution_mrs_single_wavelength.py)."""
     from .core.fft import ir2fr
@@ -221,11 +190,12 @@ def deconv2d(npix, hyper_parameter, niter, rectangle, output_dir):
     from .solvers.criterion import QuadCriterion_MRS_2D
     from .utils import metrics
 
-    os.makedirs(output_dir, exist_ok=True)
+    npix = args.npix
+    os.makedirs(args.output_dir, exist_ok=True)
     setup = make_setup(im_size=npix, n_lambda=8, n_channels=1, n_pointings=4)
     psf0 = setup["spsf"][0]
     sotf = ir2fr(psf0, setup["im_shape"])
-    cls = MRSBlurredRectangle if rectangle else MRSBlurred
+    cls = MRSBlurredRectangle if args.rectangle else MRSBlurred
     model = cls(
         sotf,
         setup["alpha_axis"],
@@ -244,36 +214,19 @@ def deconv2d(npix, hyper_parameter, niter, rectangle, output_dir):
     y = np.asarray(model.forward(truth))
 
     t0 = time.perf_counter()
-    crit = QuadCriterion_MRS_2D(1.0, y, model, hyper_parameter)
-    res = crit.run_method("lcg", maximum_iterations=niter)
+    crit = QuadCriterion_MRS_2D(1.0, y, model, args.hyper_parameter)
+    res = crit.run_method("lcg", maximum_iterations=args.niter)
     dt = time.perf_counter() - t0
 
-    np.save(os.path.join(output_dir, "deconv2d_x.npy"), res.x)
-    click.echo(json.dumps({
+    np.save(os.path.join(args.output_dir, "deconv2d_x.npy"), res.x)
+    _emit({
         "niter": int(res.n_iter),
         "seconds": dt,
         "psnr": metrics.psnr(truth, res.x),
-    }))
+    })
 
 
-@cli.command()
-@click.option("--npix", "-np", default=61, show_default=True)
-@click.option("--bands", "-b", default=None,
-              help="Comma-separated band subset (default: all 12).")
-@click.option("--pointings", default=4, show_default=True)
-@click.option("--n-templates", "-nt", default=4, show_default=True)
-@click.option("--hyper-parameter", "-hp", default=5e3, show_default=True)
-@click.option("--niter", "-ni", default=50, show_default=True)
-@click.option("--nmf-iter", default=300, show_default=True,
-              help="On-device NMF multiplicative-update iterations.")
-@click.option("--method", "-m", default="lcg",
-              type=click.Choice(["lcg", "mmmg"]), show_default=True)
-@click.option("--window-local", is_flag=True,
-              help="Tables-as-arguments mode (flagship-scale compiles).")
-@click.option("--lambda-subsample", default=1, show_default=True)
-@click.option("--output-dir", "-o", default="./surfh_results", show_default=True)
-def allband(npix, bands, pointings, n_templates, hyper_parameter, niter,
-            nmf_iter, method, window_local, lambda_subsample, output_dir):
+def allband(args):
     """All-band fusion with on-device NMF templates (BASELINE config 5):
     simulate 12-band data, co-add a dirty hypercube, learn NMF templates on
     device, fuse all bands with them, report metrics + per-stage timings
@@ -281,39 +234,22 @@ def allband(npix, bands, pointings, n_templates, hyper_parameter, niter,
     scripts/main_fusion.py:215-273)."""
     from .pipeline import run_allband_simulated
 
-    report = run_allband_simulated(
-        npix=npix,
-        bands=bands.split(",") if bands else None,
-        n_pointings=pointings,
-        n_templates=n_templates,
-        mu=hyper_parameter,
-        niter=niter,
-        method=method,
-        nmf_iter=nmf_iter,
-        output_dir=output_dir,
-        window_local=window_local,
-        lambda_subsample=lambda_subsample,
-    )
-    click.echo(json.dumps(report))
+    _emit(run_allband_simulated(
+        npix=args.npix,
+        bands=args.bands.split(",") if args.bands else None,
+        n_pointings=args.pointings,
+        n_templates=args.n_templates,
+        mu=args.hyper_parameter,
+        niter=args.niter,
+        method=args.method,
+        nmf_iter=args.nmf_iter,
+        output_dir=args.output_dir,
+        window_local=args.window_local,
+        lambda_subsample=args.lambda_subsample,
+    ))
 
 
-@cli.command()
-@click.argument("operation", type=click.Choice(
-    ["targ-coords", "rotation", "swap-slits", "rank-target"]))
-@click.option("--raw-dir", type=click.Path(exists=True), default=None,
-              help="Raw-exposure directory (source of RA_V1/DEC_V1/PA_V3).")
-@click.option("--slice-dir", "slice_dirs", multiple=True,
-              type=click.Path(exists=True),
-              help="Corrected/filtered slice directory (repeatable).")
-@click.option("--match", default="ch2", show_default=True,
-              help="Filename substring filter (swap-slits).")
-@click.option("--n-slit", default=17, show_default=True)
-@click.option("--block-width", default=24, show_default=True)
-@click.option("--ref-ra", type=float, default=None, help="Target RA (rank-target).")
-@click.option("--ref-dec", type=float, default=None, help="Target DEC (rank-target).")
-@click.option("--verbose", "-v", is_flag=True)
-def metadata(operation, raw_dir, slice_dirs, match, n_slit, block_width,
-             ref_ra, ref_dec, verbose):
+def metadata(args):
     """Header-metadata fix-ups of the real-data correction chain.
 
     Parametrized equivalents of the reference one-off scripts:
@@ -323,152 +259,112 @@ def metadata(operation, raw_dir, slice_dirs, match, n_slit, block_width,
     compare_fits_target_regarding_position.py."""
     from .preprocessing import metadata as md
 
+    operation, raw_dir = args.operation, args.raw_dir
+    slice_dirs = args.slice_dirs or []
     if operation == "targ-coords":
         if not raw_dir or not slice_dirs:
-            raise click.UsageError("targ-coords needs --raw-dir and --slice-dir")
-        n = md.propagate_target_coords(raw_dir, list(slice_dirs), verbose=verbose)
-        click.echo(json.dumps({"operation": operation, "files_updated": n}))
+            raise UsageError("targ-coords needs --raw-dir and --slice-dir")
+        n = md.propagate_target_coords(raw_dir, list(slice_dirs),
+                                       verbose=args.verbose)
+        _emit({"operation": operation, "files_updated": n})
     elif operation == "rotation":
         if not raw_dir or len(slice_dirs) != 1:
-            raise click.UsageError("rotation needs --raw-dir and ONE --slice-dir")
-        n = md.propagate_rotation(raw_dir, slice_dirs[0], verbose=verbose)
-        click.echo(json.dumps({"operation": operation, "files_updated": n}))
+            raise UsageError("rotation needs --raw-dir and ONE --slice-dir")
+        n = md.propagate_rotation(raw_dir, slice_dirs[0], verbose=args.verbose)
+        _emit({"operation": operation, "files_updated": n})
     elif operation == "swap-slits":
         if len(slice_dirs) != 1:
-            raise click.UsageError("swap-slits needs ONE --slice-dir")
+            raise UsageError("swap-slits needs ONE --slice-dir")
         n = md.swap_slit_blocks_in_files(
-            slice_dirs[0], match=match, n_slit=n_slit, block_width=block_width,
-            verbose=verbose)
-        click.echo(json.dumps({"operation": operation, "files_updated": n}))
+            slice_dirs[0], match=args.match, n_slit=args.n_slit,
+            block_width=args.block_width, verbose=args.verbose)
+        _emit({"operation": operation, "files_updated": n})
     else:  # rank-target
-        if not raw_dir or ref_ra is None or ref_dec is None:
-            raise click.UsageError("rank-target needs --raw-dir, --ref-ra, --ref-dec")
+        if not raw_dir or args.ref_ra is None or args.ref_dec is None:
+            raise UsageError("rank-target needs --raw-dir, --ref-ra, --ref-dec")
         paths = [os.path.join(raw_dir, f) for f in sorted(os.listdir(raw_dir))
                  if f.endswith(".fits")]
-        ranked = md.rank_files_by_target_distance(paths, ref_ra, ref_dec)
-        click.echo(json.dumps({"operation": operation, "ranked": [
-            {"path": p, "distance_deg": d} for p, d in ranked]}))
+        ranked = md.rank_files_by_target_distance(paths, args.ref_ra, args.ref_dec)
+        _emit({"operation": operation, "ranked": [
+            {"path": p, "distance_deg": d} for p, d in ranked]})
 
 
-@cli.command("make-cube")
-@click.option("--maps", "maps_path", required=True, type=click.Path(exists=True),
-              help=".npy abundance maps (m, Nα, Nβ) — e.g. a fusion res_x.npy.")
-@click.option("--templates", "templates_path", required=True,
-              type=click.Path(exists=True), help=".npy spectral templates (m, λ).")
-@click.option("--wavel-axis", "wavel_path", type=click.Path(exists=True),
-              default=None, help=".npy λ axis (for FITS WCS headers).")
-@click.option("--output", "-o", required=True,
-              help="Output cube path (.npy, or .fits with λ WCS when "
-                   "--wavel-axis is given).")
-def make_cube(maps_path, templates_path, wavel_path, output):
+def make_cube(args):
     """Mix abundance maps with spectral templates into a hyperspectral cube
     (reference scripts/make_cube_from_maps.py: model.mapsToCube on saved
     res_x maps; the mixing itself is cube[λ]=Σ_m maps[m]·templates[m,λ])."""
     from .core.lmm import lmm_maps2cube
 
-    maps = np.load(maps_path)
-    templates = np.load(templates_path)
+    maps = np.load(args.maps_path)
+    templates = np.load(args.templates_path)
     if templates.ndim == 1:
         templates = templates[np.newaxis, ...]
     if maps.ndim == 2:
         maps = maps[np.newaxis, ...]
     if templates.ndim != 2 or maps.ndim != 3:
-        raise click.UsageError(
+        raise UsageError(
             f"expected maps (m, Nα, Nβ) and templates (m, λ); got "
             f"{maps.shape} and {templates.shape}")
     if maps.shape[0] != templates.shape[0]:
-        raise click.UsageError(
+        raise UsageError(
             f"maps ({maps.shape[0]}) and templates ({templates.shape[0]}) "
             "disagree on the number of components")
     cube = np.asarray(lmm_maps2cube(maps, templates))
+    output = args.output
     if output.endswith(".fits"):
         from .preprocessing import fits_write
 
         header = {}
-        if wavel_path:
-            wavel = np.load(wavel_path)
+        if args.wavel_path:
+            wavel = np.load(args.wavel_path)
             header = {"CRVAL3": float(wavel[0]), "CRPIX3": 1.0,
                       "CDELT3": float(wavel[1] - wavel[0]) if len(wavel) > 1 else 1.0,
                       "CUNIT3": "um", "CTYPE3": "WAVE"}
         fits_write(output, cube.astype(np.float32), header=header)
     else:
         np.save(output, cube)
-    click.echo(json.dumps({"cube_shape": list(cube.shape), "output": output}))
+    _emit({"cube_shape": list(cube.shape), "output": output})
 
 
-@cli.command("compare-flux")
-@click.option("--fusion-cube", required=True, type=click.Path(exists=True),
-              help=".npy fused cube (λ, y, x).")
-@click.option("--real-cube", required=True, type=click.Path(exists=True),
-              help=".npy or FITS s3d real cube to compare against.")
-@click.option("--mask", type=click.Path(exists=True), default=None,
-              help="Optional .npy binary mask applied to the fused cube.")
-@click.option("--median-size", default=15, show_default=True,
-              help="λ median filter on the real cube (0 = off).")
-@click.option("--region", default=None,
-              help="Polygon vertices 'r1,c1;r2,c2;...' for a region spectrum.")
-@click.option("--output", "-o", default=None, help="Save curves to this .npz.")
-def compare_flux(fusion_cube, real_cube, mask, median_size, region, output):
+def compare_flux(args):
     """Mean-flux comparison of a fused cube vs a real data cube, per λ-slice
     (reference scripts/compare_mean_flux_fusion_vs_real_data.py: non-zero
     mean per slice, optional polygon-region spectrum, λ median filter)."""
     from .preprocessing import median_filter_slices
     from .utils import metrics
 
-    fused = np.load(fusion_cube)
-    if mask:
-        fused = fused * np.load(mask)[np.newaxis, ...]
-    if real_cube.endswith(".npy"):
-        real = np.load(real_cube)
+    fused = np.load(args.fusion_cube)
+    if args.mask:
+        fused = fused * np.load(args.mask)[np.newaxis, ...]
+    if args.real_cube.endswith(".npy"):
+        real = np.load(args.real_cube)
     else:
         from .preprocessing import fits_open
 
-        hdus = fits_open(real_cube)
+        hdus = fits_open(args.real_cube)
         real = np.asarray(next(h.data for h in hdus if h.data is not None
                                and np.ndim(h.data) == 3), np.float64)
     real = np.nan_to_num(real)
-    if median_size:
+    if args.median_size:
         real = median_filter_slices(real.reshape(real.shape[0], -1),
-                                    size=median_size).reshape(real.shape)
+                                    size=args.median_size).reshape(real.shape)
     out = {
         "mean_flux_fusion": metrics.nonzero_mean_per_slice(fused),
         "mean_flux_real": metrics.nonzero_mean_per_slice(real),
     }
-    if region:
-        poly = [tuple(map(float, p.split(","))) for p in region.split(";")]
+    if args.region:
+        poly = [tuple(map(float, p.split(","))) for p in args.region.split(";")]
         out["region_spectrum"] = metrics.region_mean_spectrum(fused, poly)
-    if output:
-        np.savez(output, **out)
-    click.echo(json.dumps({k: [float(v[0]), float(v[-1])] for k, v in out.items()}
-                          | {"n_lambda": int(fused.shape[0])}))
+    if args.output:
+        np.savez(args.output, **out)
+    _emit({k: [float(v[0]), float(v[-1])] for k, v in out.items()}
+          | {"n_lambda": int(fused.shape[0])})
 
 
-@cli.command()
-@click.option("--work-dir", "-w", default="./surfh_rehearsal", show_default=True,
-              help="Working directory (raw/, Filtered_slices/, out/ created inside).")
-@click.option("--band", "-b", default="4a", show_default=True)
-@click.option("--pointings", default=2, show_default=True)
-@click.option("--npix", "-np", default=101, show_default=True)
-@click.option("--step", default=0.1, show_default=True, help="Grid step (arcsec).")
-@click.option("--lambda-subsample", default=4, show_default=True)
-@click.option("--hyper-parameter", "-hp", "mu", default=1.0, show_default=True)
-@click.option("--niter", "-ni", default=60, show_default=True)
-@click.option("--method", "-m", default="lcg",
-              type=click.Choice(["lcg", "mmmg"]), show_default=True)
-@click.option("--noise-rms", default=0.0, show_default=True,
-              help="Gaussian noise added to the synthetic detector frames.")
-@click.option("--header", default=None, type=click.Path(exists=True),
-              help="Seed TARG_RA/TARG_DEC/PA_V3 (and the band, unless "
-                   "--band is given explicitly) from a real stage-2 FITS "
-                   "file or header card dump instead of synthetic defaults.")
-@click.option("--targ-ra", default=None, type=float,
-              help="Target RA (deg); overrides --header.")
-@click.option("--targ-dec", default=None, type=float,
-              help="Target Dec (deg); overrides --header.")
-@click.option("--pa-v3", default=None, type=float,
-              help="Telescope V3 position angle (deg); overrides --header.")
-def rehearse(work_dir, band, pointings, npix, step, lambda_subsample, mu,
-             niter, method, noise_rms, header, targ_ra, targ_dec, pa_v3):
+REHEARSE_DEFAULT_BAND = "4a"
+
+
+def rehearse(args):
     """The production real-data flow, chained end-to-end in ONE command:
 
     synthetic stage-2 cal.fits → distortion correction (Shepard, slit
@@ -480,49 +376,30 @@ def rehearse(work_dir, band, pointings, npix, step, lambda_subsample, mu,
     """
     from .pipeline import run_rehearsal
 
+    band = args.band
     geo = {}
-    if header is not None:
+    if args.header is not None:
         from .preprocessing.metadata import header_geometry
 
-        parsed = header_geometry(header)
+        parsed = header_geometry(args.header)
         geo = {k: parsed[k] for k in ("targ_ra", "targ_dec", "pa_v3")}
-        src = click.get_current_context().get_parameter_source("band")
-        if parsed["band"] and src == click.core.ParameterSource.DEFAULT:
+        if band is None and parsed["band"]:
             band = parsed["band"]
-    if targ_ra is not None:
-        geo["targ_ra"] = targ_ra
-    if targ_dec is not None:
-        geo["targ_dec"] = targ_dec
-    if pa_v3 is not None:
-        geo["pa_v3"] = pa_v3
+    if band is None:
+        band = REHEARSE_DEFAULT_BAND
+    for key in ("targ_ra", "targ_dec", "pa_v3"):
+        if getattr(args, key) is not None:
+            geo[key] = getattr(args, key)
 
-    rep = run_rehearsal(
-        work_dir, band=band, n_pointings=pointings, npix=npix,
-        step_arcsec=step, lambda_subsample=lambda_subsample, mu=mu,
-        niter=niter, method=method, noise_rms=noise_rms, **geo,
-    )
-    click.echo(json.dumps(rep))
+    _emit(run_rehearsal(
+        args.work_dir, band=band, n_pointings=args.pointings, npix=args.npix,
+        step_arcsec=args.step, lambda_subsample=args.lambda_subsample,
+        mu=args.mu, niter=args.niter, method=args.method,
+        noise_rms=args.noise_rms, **geo,
+    ))
 
 
-@cli.command("gen-psf")
-@click.option("--wavel-axis", "-w", type=click.Path(exists=True), default=None,
-              help="λ-axis .npy (µm). Defaults to the band's detector table.")
-@click.option("--band", "-b", default="1c", show_default=True,
-              help="MRS band for the default λ axis.")
-@click.option("--pixelscale", default=0.025, show_default=True, help="Arcsec/pixel.")
-@click.option("--npix", default=501, show_default=True, help="Output grid size.")
-@click.option("--oversample", default=1, show_default=True)
-@click.option("--n-pupil", default=256, show_default=True, help="Pupil grid samples.")
-@click.option("--opd", default=None,
-              help="Wavefront/OPD map injected as a pupil phase screen (the "
-              "measured-OPD capability of webbpsf): a .fits/.npy map, a "
-              ".json recorded decomposition (utils.jwst_psf.recorded_opd), "
-              "or 'commissioning' for the bundled in-flight-level fixture.")
-@click.option("--opd-unit", default="m", show_default=True,
-              type=click.Choice(["m", "um", "nm"]), help="OPD map unit.")
-@click.option("--output", "-o", default="psf.npy", show_default=True)
-def gen_psf(wavel_axis, band, pixelscale, npix, oversample, n_pupil, opd,
-            opd_unit, output):
+def gen_psf(args):
     """Generate a monochromatic JWST diffraction PSF stack (webbpsf-free).
 
     Native physical-optics replacement for the reference's
@@ -538,65 +415,61 @@ def gen_psf(wavel_axis, band, pixelscale, npix, oversample, n_pupil, opd,
     from .utils.jwst_psf import (
         load_opd, psf_stack, psf_stack_device, recorded_opd)
 
-    wavels = (np.load(wavel_axis) if wavel_axis is not None
-              else get_mrs_wavelength(band))
+    wavels = (np.load(args.wavel_axis) if args.wavel_axis is not None
+              else get_mrs_wavelength(args.band))
+    opd = args.opd
     if opd == "commissioning":
         opd = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "instrument", "data",
                            "jwst_opd_commissioning.json")
     if opd and opd.endswith(".json"):
-        opd_map = recorded_opd(opd, n_pupil)
+        opd_map = recorded_opd(opd, args.n_pupil)
     elif opd:
-        opd_map = load_opd(opd, n_pupil, unit=opd_unit)
+        opd_map = load_opd(opd, args.n_pupil, unit=args.opd_unit)
     else:
         opd_map = None
     t0 = time.time()
+    kw = dict(npix=args.npix, oversample=args.oversample,
+              n_pupil=args.n_pupil, opd=opd_map)
     if jax.default_backend() != "cpu":
         # accelerator: kernels built in-graph, one dispatch per λ-chunk
-        stack = psf_stack_device(wavels, pixelscale, npix=npix,
-                                 oversample=oversample, n_pupil=n_pupil,
-                                 opd=opd_map)
+        stack = psf_stack_device(wavels, args.pixelscale, **kw)
     else:
-        stack = psf_stack(wavels, pixelscale, npix=npix, oversample=oversample,
-                          n_pupil=n_pupil, opd=opd_map)
-    np.save(output, stack)
-    click.echo(json.dumps({
-        "n_lambda": int(stack.shape[0]), "npix": npix,
-        "pixelscale": pixelscale, "seconds": round(time.time() - t0, 2),
+        stack = psf_stack(wavels, args.pixelscale, **kw)
+    np.save(args.output, stack)
+    _emit({
+        "n_lambda": int(stack.shape[0]), "npix": args.npix,
+        "pixelscale": args.pixelscale, "seconds": round(time.time() - t0, 2),
         "opd_rms_nm": (round(float(np.sqrt(np.mean(opd_map**2))) * 1e9, 3)
                        if opd_map is not None else 0.0),
-        "output": output,
-    }))
+        "output": args.output,
+    })
 
 
-@cli.command()
-@click.option("--bands", "-b", default=None,
-              help="Comma-separated band list (default: all 12).")
-@click.option("--cache-dir", default="/tmp/surfh_jax_cache", show_default=True,
-              help="Persistent XLA compile cache to prime.")
-@click.option("--programs", default="fwd,adj", show_default=True,
-              help="Comma-set of programs to compile: fwd,adj,normal.")
-def warmup(bands, cache_dir, programs):
+def warmup(args):
     """Prime the persistent compile cache for the flagship programs.
 
-    The flagship solve itself takes seconds, but a COLD first run pays the
-    full XLA compile of the forward/adjoint programs (minutes through a
-    remote-compile tunnel).  Running `warmup` once per environment moves
-    that cost out of production runs: later processes load the compiled
-    executables from `cache-dir` in seconds.  Prints per-program compile
+    A cold first run pays the full XLA compile of the forward/adjoint
+    programs.  Running `warmup` once per environment moves that cost out of
+    production runs: later processes load the compiled executables from the
+    cache (`--cache-dir`, else `JAX_COMPILATION_CACHE_DIR`, else
+    `.surfh_cache/jax` in the checkout).  Prints per-program compile
     seconds (cache hits show up as ~0)."""
     import jax
     import jax.numpy as jnp
 
     from .simulation.flagship import make_flagship_model
+    from .utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+    if args.cache_dir:
+        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
+        cache_dir = args.cache_dir
+    else:
+        cache_dir = enable_compile_cache()
     report = {"cache_dir": cache_dir, "backend": jax.default_backend()}
     t0 = time.time()
     model, setup = make_flagship_model(
-        bands=[b.strip() for b in bands.split(",")] if bands else None,
+        bands=[b.strip() for b in args.bands.split(",")] if args.bands else None,
     )
     report["t_build_s"] = round(time.time() - t0, 1)
 
@@ -608,7 +481,7 @@ def warmup(bands, cache_dir, programs):
     fwd_fn = model._forward_fn_tabled if model.window_local else model._forward_fn
     adj_fn = model._adjoint_fn_tabled if model.window_local else model.adjoint_fn
 
-    want = {p.strip() for p in programs.split(",")}
+    want = {p.strip() for p in args.programs.split(",")}
     x_spec = jax.ShapeDtypeStruct(model.ishape, jnp.float32)
     y_spec = jax.ShapeDtypeStruct(model.oshape, jnp.float32)
     if "fwd" in want:
@@ -623,20 +496,193 @@ def warmup(bands, cache_dir, programs):
         t0 = time.time()
         jax.jit(model._normal_fn_tabled).lower(x_spec, *app_args).compile()
         report["t_compile_normal_s"] = round(time.time() - t0, 1)
-    click.echo(json.dumps(report))
+    _emit(report)
 
 
-@cli.command()
-def info():
+def info(args):
     """Print device/backend information."""
     import jax
 
-    click.echo(json.dumps({
+    _emit({
         "jax": jax.__version__,
         "backend": jax.default_backend(),
         "devices": [str(d) for d in jax.devices()],
-    }))
+    })
+
+
+# --------------------------------------------------------------------------
+# parser
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m surfh_tpu.cli",
+        description="surfh_tpu — JWST MRS super-resolution and fusion in JAX. "
+                    "Set SURFH_CPU=1 to force the CPU backend (e.g. for "
+                    "local dry runs).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    sub = ap.add_subparsers(dest="command", required=True, metavar="COMMAND")
+
+    def command(name, fn):
+        p = sub.add_parser(name, help=fn.__doc__.split("\n")[0],
+                           description=fn.__doc__,
+                           formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+        p.set_defaults(func=fn)
+        return p
+
+    def output_dir(p):
+        p.add_argument("--output-dir", "-o", default="./surfh_results")
+
+    def rectangle(p, help_):
+        p.add_argument("--rectangle", dest="rectangle", action="store_true",
+                       default=True, help=help_)
+        p.add_argument("--rotated", dest="rectangle", action="store_false")
+
+    methods = ["lcg", "mmmg"]
+
+    p = command("fusion", fusion)
+    p.add_argument("--fusion-data", "-fd", type=_existing_path, default=None,
+                   help="Directory with templates.npy / wavel_axis.npy / psfs_*.npy and slice data (real-data mode).")
+    p.add_argument("--simulated", action="store_true", help="Run a fully simulated fusion (no data files needed).")
+    p.add_argument("--npix", "-np", type=int, default=81, help="Spatial grid size.")
+    p.add_argument("--n-lambda", type=int, default=60, help="Cube λ samples (simulated mode).")
+    p.add_argument("--channels", "-nc", type=int, default=2, help="Number of bands (simulated mode).")
+    p.add_argument("--pointings", type=int, default=2, help="Dither pointings (simulated mode).")
+    p.add_argument("--hyper-parameter", "-hp", type=float, default=5e3, help="Regularization µ.")
+    p.add_argument("--niter", "-ni", type=int, default=50)
+    p.add_argument("--n-templates", "-nt", type=int, default=4)
+    p.add_argument("--scale-data", "-sd", action="store_true", help="Apply Jy/SR → Jy flux normalization (real data).")
+    p.add_argument("--method", "-m", default="lcg", choices=methods)
+    p.add_argument("--noise-snr", type=float, default=0.0, help="Add white noise at this SNR (dB) to simulated data.")
+    p.add_argument("--sharded", action="store_true", help="Shard channels over the device mesh.")
+    p.add_argument("--checkpoint-every", type=int, default=0, help="Checkpoint the solver state every N iterations.")
+    output_dir(p)
+    p.add_argument("--verbose", "-v", action="store_true")
+
+    p = command("deconv-cube", deconv_cube)
+    p.add_argument("--npix", "-np", type=int, default=81)
+    p.add_argument("--n-lambda", "-nl", type=int, default=24, help="λ planes in the deconvolved stack.")
+    p.add_argument("--hyper-parameter", "-hp", type=float, default=5.0)
+    p.add_argument("--niter", "-ni", type=int, default=100)
+    p.add_argument("--pointings", type=int, default=2, help="Dither pointings (the reference run keeps [P1, P3]).")
+    rectangle(p, "Rectangle (no-rotation) or rotated-FOV gridding.")
+    output_dir(p)
+
+    p = command("deconv2d", deconv2d)
+    p.add_argument("--npix", "-np", type=int, default=81)
+    p.add_argument("--hyper-parameter", "-hp", type=float, default=500.0)
+    p.add_argument("--niter", "-ni", type=int, default=200)
+    rectangle(p, "Rectangle (no-rotation) or rotated-FOV PSF variant.")
+    output_dir(p)
+
+    p = command("allband", allband)
+    p.add_argument("--npix", "-np", type=int, default=61)
+    p.add_argument("--bands", "-b", default=None, help="Comma-separated band subset (default: all 12).")
+    p.add_argument("--pointings", type=int, default=4)
+    p.add_argument("--n-templates", "-nt", type=int, default=4)
+    p.add_argument("--hyper-parameter", "-hp", type=float, default=5e3)
+    p.add_argument("--niter", "-ni", type=int, default=50)
+    p.add_argument("--nmf-iter", type=int, default=300, help="On-device NMF multiplicative-update iterations.")
+    p.add_argument("--method", "-m", default="lcg", choices=methods)
+    p.add_argument("--window-local", action="store_true", help="Tables-as-arguments mode (flagship-scale compiles).")
+    p.add_argument("--lambda-subsample", type=int, default=1)
+    output_dir(p)
+
+    p = command("metadata", metadata)
+    p.add_argument("operation", choices=["targ-coords", "rotation", "swap-slits", "rank-target"])
+    p.add_argument("--raw-dir", type=_existing_path, default=None, help="Raw-exposure directory (source of RA_V1/DEC_V1/PA_V3).")
+    p.add_argument("--slice-dir", dest="slice_dirs", action="append", type=_existing_path,
+                   help="Corrected/filtered slice directory (repeatable).")
+    p.add_argument("--match", default="ch2", help="Filename substring filter (swap-slits).")
+    p.add_argument("--n-slit", type=int, default=17)
+    p.add_argument("--block-width", type=int, default=24)
+    p.add_argument("--ref-ra", type=float, default=None, help="Target RA (rank-target).")
+    p.add_argument("--ref-dec", type=float, default=None, help="Target DEC (rank-target).")
+    p.add_argument("--verbose", "-v", action="store_true")
+
+    p = command("make-cube", make_cube)
+    p.add_argument("--maps", dest="maps_path", required=True, type=_existing_path,
+                   help=".npy abundance maps (m, Nα, Nβ) — e.g. a fusion res_x.npy.")
+    p.add_argument("--templates", dest="templates_path", required=True, type=_existing_path,
+                   help=".npy spectral templates (m, λ).")
+    p.add_argument("--wavel-axis", dest="wavel_path", type=_existing_path, default=None,
+                   help=".npy λ axis (for FITS WCS headers).")
+    p.add_argument("--output", "-o", required=True,
+                   help="Output cube path (.npy, or .fits with λ WCS when --wavel-axis is given).")
+
+    p = command("compare-flux", compare_flux)
+    p.add_argument("--fusion-cube", required=True, type=_existing_path, help=".npy fused cube (λ, y, x).")
+    p.add_argument("--real-cube", required=True, type=_existing_path,
+                   help=".npy or FITS s3d real cube to compare against.")
+    p.add_argument("--mask", type=_existing_path, default=None,
+                   help="Optional .npy binary mask applied to the fused cube.")
+    p.add_argument("--median-size", type=int, default=15, help="λ median filter on the real cube (0 = off).")
+    p.add_argument("--region", default=None, help="Polygon vertices 'r1,c1;r2,c2;...' for a region spectrum.")
+    p.add_argument("--output", "-o", default=None, help="Save curves to this .npz.")
+
+    p = command("rehearse", rehearse)
+    p.add_argument("--work-dir", "-w", default="./surfh_rehearsal",
+                   help="Working directory (raw/, Filtered_slices/, out/ created inside).")
+    p.add_argument("--band", "-b", default=None,
+                   help=f"MRS band (default: from --header, else {REHEARSE_DEFAULT_BAND}).")
+    p.add_argument("--pointings", type=int, default=2)
+    p.add_argument("--npix", "-np", type=int, default=101)
+    p.add_argument("--step", type=float, default=0.1, help="Grid step (arcsec).")
+    p.add_argument("--lambda-subsample", type=int, default=4)
+    p.add_argument("--hyper-parameter", "-hp", dest="mu", type=float, default=1.0)
+    p.add_argument("--niter", "-ni", type=int, default=60)
+    p.add_argument("--method", "-m", default="lcg", choices=methods)
+    p.add_argument("--noise-rms", type=float, default=0.0,
+                   help="Gaussian noise added to the synthetic detector frames.")
+    p.add_argument("--header", default=None, type=_existing_path,
+                   help="Seed TARG_RA/TARG_DEC/PA_V3 (and the band, unless --band is given "
+                        "explicitly) from a real stage-2 FITS file or header card dump "
+                        "instead of synthetic defaults.")
+    p.add_argument("--targ-ra", type=float, default=None, help="Target RA (deg); overrides --header.")
+    p.add_argument("--targ-dec", type=float, default=None, help="Target Dec (deg); overrides --header.")
+    p.add_argument("--pa-v3", type=float, default=None, help="Telescope V3 position angle (deg); overrides --header.")
+
+    p = command("gen-psf", gen_psf)
+    p.add_argument("--wavel-axis", "-w", type=_existing_path, default=None,
+                   help="λ-axis .npy (µm). Defaults to the band's detector table.")
+    p.add_argument("--band", "-b", default="1c", help="MRS band for the default λ axis.")
+    p.add_argument("--pixelscale", type=float, default=0.025, help="Arcsec/pixel.")
+    p.add_argument("--npix", type=int, default=501, help="Output grid size.")
+    p.add_argument("--oversample", type=int, default=1)
+    p.add_argument("--n-pupil", type=int, default=256, help="Pupil grid samples.")
+    p.add_argument("--opd", default=None,
+                   help="Wavefront/OPD map injected as a pupil phase screen (the "
+                        "measured-OPD capability of webbpsf): a .fits/.npy map, a "
+                        ".json recorded decomposition (utils.jwst_psf.recorded_opd), "
+                        "or 'commissioning' for the bundled in-flight-level fixture.")
+    p.add_argument("--opd-unit", default="m", choices=["m", "um", "nm"], help="OPD map unit.")
+    p.add_argument("--output", "-o", default="psf.npy")
+
+    p = command("warmup", warmup)
+    p.add_argument("--bands", "-b", default=None, help="Comma-separated band list (default: all 12).")
+    p.add_argument("--cache-dir", default=None,
+                   help="Persistent XLA compile cache to prime (default: "
+                        "$JAX_COMPILATION_CACHE_DIR, else .surfh_cache/jax).")
+    p.add_argument("--programs", default="fwd,adj", help="Comma-set of programs to compile: fwd,adj,normal.")
+
+    command("info", info)
+    return ap
+
+
+def main(argv=None) -> int:
+    """Run one command; `argv` defaults to `sys.argv[1:]`."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if os.environ.get("SURFH_CPU"):
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+    try:
+        args.func(args)
+    except UsageError as e:
+        parser.error(f"{args.command}: {e}")
+    return 0
 
 
 if __name__ == "__main__":
-    cli()
+    sys.exit(main())

@@ -8,10 +8,10 @@ This enables exact closed-form solves by inverting each block independently.
 
 Reference: `partitioning_einops2` / `concat_M` / `concatenating2` / `split_M`
 / `make_iHtH_spectro` / `apply_hessian_freq`
-(/root/reference/surfh/ToolsDir/algorithms.py:108-184).  The TPU redesign
+(/root/reference/surfh/ToolsDir/algorithms.py:108-184).  The redesign
 replaces the reference's per-frequency Python double loop in
 `make_iHtH_spectro` with ONE batched `jnp.linalg.inv` over all frequencies
-(the blocks stack into a [h·w, S·D, S·D] batch that XLA maps onto the MXU).
+(the blocks stack into one [h·w, S·D, S·D] batch).
 """
 
 from __future__ import annotations

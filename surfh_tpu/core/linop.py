@@ -20,7 +20,7 @@ Shape = Tuple[int, ...]
 
 
 def build_transpose(fwd: Callable, primal) -> Callable:
-    """Exact transpose of a linear `fwd`, with constants pinned to host/CPU.
+    """Exact transpose of a linear `fwd`.
 
     Implemented as the VJP at a zero primal: for a linear map the VJP *is*
     the transpose (exact, not approximate), and unlike `jax.linear_transpose`
@@ -28,12 +28,6 @@ def build_transpose(fwd: Callable, primal) -> Callable:
     non-linear scanned inputs such as gather-plan tables).  The unused primal
     output and zero-input forward pass are dead-code-eliminated by XLA under
     jit, so the compiled program is the same as the hand-derived transpose.
-
-    During the trace, rank-promoting broadcasts of NumPy constants execute
-    *eagerly* on the default device; some TPU runtimes cannot fetch those
-    device constants back for lowering (UNIMPLEMENTED device→host transfer).
-    Tracing under the CPU default device keeps every trace-time constant
-    host-resident so jit can embed it directly.
     """
 
     def transpose(cotangent):
@@ -43,16 +37,7 @@ def build_transpose(fwd: Callable, primal) -> Callable:
         _, vjp_fn = jax.vjp(fwd, zeros)
         return vjp_fn(cotangent)
 
-    try:
-        cpu = jax.devices("cpu")[0]
-    except RuntimeError:
-        return transpose
-
-    def transpose_on_cpu_trace(cotangent):
-        with jax.default_device(cpu):
-            return transpose(cotangent)
-
-    return transpose_on_cpu_trace
+    return transpose
 
 
 class LinOp:

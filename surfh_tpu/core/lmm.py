@@ -1,9 +1,9 @@
-"""Linear mixing model (the T operator) as MXU-friendly matmuls.
+"""Linear mixing model (the T operator) as plain matmuls.
 
 The reference implements maps→cube as a broadcast-sum
 (`surfh/ToolsDir/jax_utils.py:10-26`, Cython twins
-`surfh/ToolsDir/cythons_files.pyx:424-486`).  On TPU the same contraction is a
-single matmul [λ, m] @ [m, Nα·Nβ] that lands on the systolic array.
+`surfh/ToolsDir/cythons_files.pyx:424-486`).  Here the same contraction is a
+single GEMM [λ, m] @ [m, Nα·Nβ].
 """
 
 from __future__ import annotations

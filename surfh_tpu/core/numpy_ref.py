@@ -146,27 +146,32 @@ def channel_adjoint(chan, y):
 
 # ---------------------------------------------------------------------------
 # flagship pipeline
-def spectro_forward(model, x):
-    """Reference-structured CPU forward of `SpectroSigRLSCT` (serial loops)."""
+def spectro_forward(model, x, sotf=None):
+    """Reference-structured CPU forward of `SpectroSigRLSCT` (serial loops).
+
+    `sotf` defaults to the model's materialized OTF; pass it for models
+    built from PSF stamps (which hold none)."""
     x = np.asarray(x, np.float64).reshape(model.ishape)
+    sotf = model.sotf if sotf is None else sotf
     if model.lmm:
         cube = lmm_maps2cube(x, model.templates)
     else:
         cube = x
-    blurred = idft(dft(cube) * model.sotf, model.imshape)
+    blurred = idft(dft(cube) * sotf, model.imshape)
     return np.concatenate(
         [channel_forward(chan, blurred).ravel() for chan in model.channels]
     )
 
 
-def spectro_adjoint(model, y):
+def spectro_adjoint(model, y, sotf=None):
     """Exact CPU transpose of :func:`spectro_forward`."""
     y = np.asarray(y, np.float64).ravel()
+    sotf = model.sotf if sotf is None else sotf
     cube = np.zeros(model.cube_shape)
     for c, chan in enumerate(model.channels):
         block = y[model._idx[c] : model._idx[c + 1]]
         cube[chan.wslice] += channel_adjoint(chan, block)
-    blurred_t = idft(dft(cube) * model.sotf.conj(), model.imshape)
+    blurred_t = idft(dft(cube) * np.conj(sotf), model.imshape)
     if model.lmm:
         return lmm_cube2maps(blurred_t, model.templates)
     return blurred_t

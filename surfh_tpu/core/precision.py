@@ -1,23 +1,25 @@
 """Matmul input-precision policy for the f32 contractions.
 
-On TPU, `jnp.einsum`/`jnp.matmul`/`lax.dot_general` over float32 inputs
-default to ONE bf16 MXU pass (`precision="default"`): the operands are
-rounded to 8 mantissa bits before the systolic array, so a [K,W]·[W,N]
-contraction carries a ~1e-3-class relative error even though the
-accumulator (`preferred_element_type`) is f32.  Measured on the flagship
-pipeline this bf16 rounding — not the λ-rank SVD truncation — dominated the
-dense-vs-rank deviation (1.5e-3 RMS; PERF.md "λ-rank fidelity at flagship
-scale").  The framework's fidelity bar is float32 (BASELINE.json), so every
-accuracy-relevant GEMM pins `precision=gemm_precision()`:
+On a GPU, XLA may run an f32 `jnp.einsum`/`jnp.matmul`/`lax.dot_general`
+that names no precision (`precision="default"`) on the tensor cores in TF32:
+the operands are rounded to 10 mantissa bits, so a [K,W]·[W,N] contraction
+carries a ~1e-3-class relative error even though the accumulator
+(`preferred_element_type`) is f32.  That breaks the float32 dot tests and
+the CG conjugacy the solvers rely on, and the framework's fidelity bar is
+float32 (BASELINE.json), so every accuracy-relevant GEMM pins
+`precision=gemm_precision()`:
 
-* ``highest`` (default) — full f32 via 6 bf16 passes on the MXU;
-* ``high`` — 3 bf16 passes, ~1e-6-class deviation, ~2x faster;
-* ``default`` — 1 bf16 pass, fastest, bf16-class accuracy.
+* ``highest`` (default) — full f32 (no TF32; on the H100 the f32 FMA units,
+  ~67 TFLOP/s peak);
+* ``high`` — the backend may use a faster multi-pass scheme (3×TF32 /
+  bf16-split, ~1e-6-class deviation);
+* ``default`` — the backend's fastest (TF32 on the tensor cores),
+  TF32-class accuracy.
 
 ``SURFH_GEMM_PRECISION`` overrides at model/trace time (the value is read
 when the jitted function is traced, like the other SURFH_* knobs).  The
-conv matmuls have their own finer-grained knob (``conv_precision``,
-models/spectro.py) and are already pinned.
+conv matmuls have their own knob (``conv_precision``, models/spectro.py)
+and are already pinned.
 
 On CPU the flag is a no-op (f32 units are exact f32), so the 8-virtual-
 device test suite is unaffected.

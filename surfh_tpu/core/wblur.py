@@ -1,17 +1,17 @@
-"""Spectral blur (the R operator) as batched MXU contractions.
+"""Spectral blur (the R operator) as batched GEMM contractions.
 
 The reference's hot kernel: out[λ', α, β] = Σ_λ arr[λ, α, β] · wpsf[λ', λ, β]
 with OpenMP Cython / numba / JAX broadcast implementations
 (`surfh/ToolsDir/cythons_files.pyx:202-319`, `surfh/ToolsDir/jax_utils.py:62-101`).
 
-TPU mapping: for fixed β this is a (λ'×λ) @ (λ×α) matmul; the fused
+Accelerator mapping: for fixed β this is a (λ'×λ) @ (λ×α) matmul; the fused
 "blur + β-sum" used on the detector path contracts jointly over (λ, β), i.e. a
-single [λ', λ·β] @ [λ·β, α] matmul per slit — ideal MXU shape.  The α-axis
+single [λ', λ·β] @ [λ·β, α] matmul per slit.  The α-axis
 subsampling of the detector model commutes with the blur (α is a bystander
 axis), so callers subsample *before* blurring for an srf× saving.
 
-A Pallas banded kernel exploiting the narrow sinc² support lives in
-:mod:`surfh_tpu.core.pallas_wblur` and is used when profitable.
+A banded spelling exploiting the narrow sinc² support lives in
+:mod:`surfh_tpu.core.wblur_banded` (the opt-in `wblur_impl="banded"`).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def wblur_sum_beta_batched(arr, wpsf):
     Spelled as ONE plain GEMM [λ', λ·β] @ [λ·β, s·α] — NOT a batched-einsum
     over s: a batch dim makes XLA re-stream the wpsf table (K·W·β ≈ 26 MB at
     flagship scale) once per slit, turning a compute-trivial contraction
-    HBM-bound (S ≈ 12–21 redundant table reads)."""
+    memory-bound (S ≈ 12–21 redundant table reads)."""
     s, l, a, b = arr.shape
     k = wpsf.shape[0]
     lhs = wpsf.reshape(k, l * b)

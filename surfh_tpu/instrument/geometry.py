@@ -1,7 +1,7 @@
 """Sky/instrument geometry: coordinates, fields of view, resolution arithmetic.
 
 Host-side (NumPy float64) geometry used once at model construction to derive
-the static index/weight tables baked into jitted TPU closures.  Behavioural
+the static index/weight tables baked into jitted closures.  Behavioural
 reference: /root/reference/surfh/Models/instru.py:36-481 (Coord/CoordList/FOV/
 LocalFOV, `get_step`, `get_srf`, `generate_pointings`).
 """

@@ -13,6 +13,8 @@ import os
 
 import numpy as np
 
+from ..utils import cache as _cache
+
 # Margin (in input-axis samples) appended on each side purely to normalize the
 # PSF in the convolution sense; removed from the returned tensor.
 _N_MARGIN = 15
@@ -63,7 +65,7 @@ class SpectralBlur:
         )
         if key in _PSF_MEM_CACHE:
             return _PSF_MEM_CACHE[key]
-        cache_dir = os.environ.get("SURFH_CACHE_DIR", "/tmp/surfh_cache")
+        cache_dir = os.environ.get("SURFH_CACHE_DIR") or _cache.cache_dir("arrays")
         cache_path = os.path.join(cache_dir, f"wpsf_{key}.npy")
         if os.path.exists(cache_path):
             out = np.load(cache_path)

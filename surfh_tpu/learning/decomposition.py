@@ -6,7 +6,7 @@ NMF/PCA and pysptools NFINDR+FCLS over masked reconstructed cubes
 nfinder_orion.ipynb), saving `templates.npy` / `wavel_axis.npy` consumed by
 `scripts/main_fusion.py:77-101`.  Here the same decompositions run on device:
 
-* NMF: Lee–Seung multiplicative updates as one `lax.fori_loop` (two MXU
+* NMF: Lee–Seung multiplicative updates as one `lax.fori_loop` (two
   matmuls per factor per iteration);
 * PCA: SVD of the centered data matrix;
 * N-FINDR: simplex-volume maximization by iterative vertex replacement;
@@ -33,7 +33,7 @@ def _nmf_run(X, W0, H0, n_components: int, n_iter: int):
         W = W * (X @ H.T) / (W @ (H @ H.T) + eps)
         return W, H
 
-    # full-f32 MXU passes: bf16 default-precision updates stall the
+    # full-f32 matmuls: reduced-precision (TF32/bf16) updates stall the
     # multiplicative descent near the fixed point (core/precision.py)
     with jax.default_matmul_precision("highest"):
         return jax.lax.fori_loop(0, n_iter, body, (W0, H0))

@@ -14,7 +14,7 @@ gridding, L = slit extraction with edge weights, R = spectral blur,
 Sig = β-integration + α-subsampling onto detector pixels, MO = multi-pointing,
 MC = multi-channel.
 
-TPU design: every forward is one pure jittable function over static
+Design: every forward is one pure jittable function over static
 precomputed tables; every adjoint is its exact `jax.linear_transpose` (the
 LinOp base), so each model passes the dot test to float precision by
 construction.

@@ -231,7 +231,7 @@ def run_rehearsal(
     targ_dec: float = -5.42,
     pa_v3: float = 0.0,
 ) -> Dict:
-    """The production real-data flow as ONE chained run (VERDICT r2 item 1):
+    """The production real-data flow as ONE chained run:
 
       synthetic stage-2 cal.fits → distortion correction (Shepard, slit
       reorder) → median λ-filter → corrected-slice FITS → fusion →

@@ -10,7 +10,7 @@ model grid.  The interpolated cube then feeds
 `Channel.realData_cubeToSlice` to produce per-slit numpy data (":265-267").
 
 Design deltas from the reference (host-side prep, NumPy/SciPy — none of
-this runs on TPU):
+this runs on the accelerator):
 
 - The Delaunay triangulation of the scattered (RA, DEC) point cloud is
   built ONCE and reused for every λ plane (the reference calls

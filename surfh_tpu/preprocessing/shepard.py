@@ -4,7 +4,8 @@ Replaces the reference's Cython kernel
 (/root/reference/surfh/ToolsDir/shepard_interpolation.pyx:76-141), which is a
 serial O(grid × points) double loop.  Here the whole weight matrix is one
 vectorized masked computation, evaluated in row chunks via `lax.map` to bound
-memory — the natural TPU shape for a dense scattered→grid interpolation.
+memory — the natural accelerator shape for a dense scattered→grid
+interpolation.
 """
 
 from __future__ import annotations

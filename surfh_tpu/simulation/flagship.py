@@ -28,6 +28,7 @@ import dataclasses
 from ..core.fft import ir2fr
 from ..instrument import miri, wavelength_mrs
 from ..instrument.geometry import CoordList
+from ..utils import cache as _cache
 from ..utils.psf import gaussian_psf
 
 # The reference's flagship runs at a fixed 0.025″ super-resolution step
@@ -172,7 +173,7 @@ def _make_setup_from_instrs(
     # under SURFH_CACHE_DIR.  Only for FFT-mode / numpy_ref consumers.
     sotf = None
     if build_sotf:
-        cache_dir = os.environ.get("SURFH_CACHE_DIR", "/tmp/surfh_cache")
+        cache_dir = os.environ.get("SURFH_CACHE_DIR") or _cache.cache_dir("arrays")
         # key on the λ-axis CONTENTS, not just its length: two band subsets
         # can have equal sample counts but different wavelengths (different
         # PSF widths per plane)
@@ -244,19 +245,21 @@ def make_flagship_model(
     the conv matmul FLOPs (PERF.md "frequency-truncated conv").
 
     `conv_precision` defaults to "highest" (`SURFH_CONV_PRECISION`
-    overrides): MXU pass count of the conv matmuls — "high" (3-pass bf16)
-    trades ~5.6e-5 max rel conv deviation for a ~30% faster conv stage.
+    overrides): the input precision of the conv matmuls
+    (core/precision.py).  `conv_impl="auto"` follows
+    `config.platform_policy`.
     """
-    import jax
     import jax.numpy as jnp
+
+    from ..config import platform_policy
 
     from ..models.spectro import SpectroSigRLSCT
 
+    resolved = conv_impl
+    if resolved == "auto":
+        resolved = platform_policy().conv_impl
     if setup is None:
-        need_sotf = conv_impl == "fft" or (
-            conv_impl == "auto" and jax.default_backend() != "tpu"
-        )
-        setup = make_flagship_setup(build_sotf=need_sotf, **kwargs)
+        setup = make_flagship_setup(build_sotf=resolved == "fft", **kwargs)
     if dtype is None:
         dtype = jnp.float32
     if conv_freq_rtol is None:
@@ -274,9 +277,6 @@ def make_flagship_model(
     # default whenever the matmul conv path will run; a materialized sotf is
     # only required for the FFT conv.  SURFH_PSF_STAMPS=0 forces the
     # OTF-window tables (needs setup built with build_sotf=True).
-    resolved = conv_impl
-    if resolved == "auto":
-        resolved = "matmul" if jax.default_backend() == "tpu" else "fft"
     use_stamps = (
         resolved == "matmul"
         and window_local

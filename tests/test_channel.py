@@ -65,7 +65,7 @@ class TestChannel:
         assert num / den < 0.5  # same operator up to interpolation asymmetry
 
     def test_forward_matches_reference_algorithm(self, channel, fx, rng):
-        """Cross-check the fused TPU pipeline against a direct NumPy transcription
+        """Cross-check the fused JAX pipeline against a direct NumPy transcription
         of the reference forward semantics (gridding → FFT SRF sum → slicing →
         wblur_subSampling → α subsample)."""
         cube = rng.random(channel.ishape)

@@ -7,8 +7,7 @@ enforced only by construction.  These tests inspect the jaxpr of every
 sharded entry point and assert the exact collective count per EXECUTED
 path (a `lax.switch` counts the maximum over its branches — each device
 runs exactly one), and that no other collective primitive (all_gather /
-ppermute / all_to_all / reduce_scatter / pgather) appears anywhere
-(VERDICT r3 item 8).
+ppermute / all_to_all / reduce_scatter / pgather) appears anywhere.
 
 A compiled-HLO spot check on the channel-expert normal additionally pins
 the count after XLA's SPMD partitioner (`all-reduce` ops in the optimized

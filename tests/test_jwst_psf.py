@@ -129,7 +129,7 @@ def test_flagship_setup_diffraction_knob(monkeypatch):
 
 
 def test_opd_changes_psf_conserves_energy():
-    """Synthetic Zernike OPD (VERDICT r2 item 8): a non-zero wavefront map
+    """Synthetic Zernike OPD: a non-zero wavefront map
     must change the PSF while a pure phase screen conserves total energy."""
     n_pup = 128
     pup = jwst_psf.jwst_pupil(n_pup)
@@ -187,9 +187,7 @@ def test_load_opd_roundtrip(tmp_path):
 
 def test_gen_psf_cli_opd(tmp_path):
     """cli gen-psf --opd produces a stack that differs from the ideal one."""
-    from click.testing import CliRunner
-
-    from surfh_tpu.cli import cli
+    from surfh_tpu.cli import main as cli_main
 
     opd = jwst_psf.zernike_opd(96, {4: 400e-9})
     p_opd = str(tmp_path / "opd.npy")
@@ -198,20 +196,18 @@ def test_gen_psf_cli_opd(tmp_path):
     np.save(lam, np.array([8.0]))
     out_i = str(tmp_path / "ideal.npy")
     out_a = str(tmp_path / "aber.npy")
-    r = CliRunner().invoke(cli, [
-        "gen-psf", "-w", lam, "--npix", "65", "--n-pupil", "96", "-o", out_i])
-    assert r.exit_code == 0, r.output
-    r = CliRunner().invoke(cli, [
+    assert cli_main([
+        "gen-psf", "-w", lam, "--npix", "65", "--n-pupil", "96", "-o", out_i]) == 0
+    assert cli_main([
         "gen-psf", "-w", lam, "--npix", "65", "--n-pupil", "96",
-        "--opd", p_opd, "-o", out_a])
-    assert r.exit_code == 0, r.output
+        "--opd", p_opd, "-o", out_a]) == 0
     ideal, aber = np.load(out_i), np.load(out_a)
     assert not np.allclose(ideal, aber, rtol=1e-3)
 
 
 def test_flagship_sotf_cache_keyed_on_psf_family(monkeypatch, tmp_path):
     """The sotf disk cache must not serve one PSF family's OTF to the other
-    (ADVICE r2: key previously omitted the family → stale cross-family load)."""
+   ."""
     from surfh_tpu.simulation.flagship import make_allband_setup
 
     monkeypatch.setenv("SURFH_CACHE_DIR", str(tmp_path))
@@ -250,7 +246,7 @@ def test_diffraction_spikes_sixfold():
 
 
 # ---------------------------------------------------------------------------
-# recorded OPD fixture (VERDICT r3 item 7): realistic in-flight wavefront
+# recorded OPD fixture: realistic in-flight wavefront
 # ---------------------------------------------------------------------------
 
 OPD_FIXTURE = os.path.join(
@@ -313,22 +309,19 @@ def test_recorded_opd_miri_band_psf_change():
     assert 0.985 < p1.max() / p0.max() < 0.999  # Strehl ≈ 0.993
 
 
-def test_gen_psf_cli_with_recorded_opd(tmp_path):
-    from click.testing import CliRunner
-
-    from surfh_tpu.cli import cli as cli_group
+def test_gen_psf_cli_with_recorded_opd(tmp_path, capsys):
+    from surfh_tpu.cli import main as cli_main
 
     wav = tmp_path / "wav.npy"
     np.save(wav, np.array([5.3, 5.35], np.float64))
     out = tmp_path / "psf.npy"
-    r = CliRunner().invoke(cli_group, [
+    assert cli_main([
         "gen-psf", "--wavel-axis", str(wav), "--npix", "61",
         "--n-pupil", "128", "--opd", "commissioning", "-o", str(out),
-    ])
-    assert r.exit_code == 0, r.output
+    ]) == 0
     import json as _json
 
-    info = _json.loads(r.output.strip().splitlines()[-1])
+    info = _json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert 55.0 < info["opd_rms_nm"] < 85.0  # full-grid rms (pupil-masked ~70)
     stack = np.load(out)
     assert stack.shape == (2, 61, 61)

@@ -1,4 +1,4 @@
-"""Kernel accuracy tests: JAX/TPU kernels vs plain NumPy references.
+"""Kernel accuracy tests: JAX kernels vs plain NumPy references.
 
 Port of the reference's backend-equivalence strategy
 (/root/reference/test/test_accel_accuracy.py): every production kernel is
@@ -144,9 +144,9 @@ class TestBilinear:
 
 
 def test_conv_otf_matmul_matches_fft():
-    """MXU matmul-form DFT convolution == rfft2/irfft2 convolution, and its
+    """Matmul-form DFT convolution == rfft2/irfft2 convolution, and its
     hand transpose == jax.linear_transpose, at machine precision in f64
-    (odd/even/non-square grids; the flagship TPU conv backend)."""
+    (odd/even/non-square grids; the flagship GPU conv backend)."""
     import jax
 
     from surfh_tpu.core import fft
@@ -173,7 +173,7 @@ def test_conv_otf_matmul_matches_fft():
 
 def test_spectro_conv_impl_matmul_equivalent():
     """conv_impl='matmul' model == conv_impl='fft' model in float64 (forward,
-    adjoint, dot-test) — the TPU default backend's exactness contract."""
+    adjoint, dot-test) — the GPU default backend's exactness contract."""
     import jax.numpy as jnp2
 
     from surfh_tpu.models.spectro import SpectroSigRLSCT
@@ -199,7 +199,7 @@ def test_spectro_conv_impl_matmul_equivalent():
 
 
 def test_spectro_conv_precision_knob():
-    """conv_precision='high' (3-pass bf16 MXU emulation) keeps the exact
+    """conv_precision='high' (reduced-precision operands) keeps the exact
     forward/transpose contract (dot-test) — both directions use the same
     precision — and is a numerical no-op in float64 on CPU."""
     import jax.numpy as jnp2
@@ -459,8 +459,8 @@ def test_gemm_precision_policy():
     """core/precision.py contract: default is full-f32 ("highest"),
     SURFH_GEMM_PRECISION overrides at trace time, invalid values are loud.
     The policy is read by every accuracy-relevant contraction (wblur, lmm,
-    solver vdots, ...) because TPU f32 matmuls default to one bf16 MXU pass
-    (PERF.md "bf16 default-precision fix")."""
+    solver vdots, ...) because an f32 matmul that names no precision may
+    run in TF32 on the GPU."""
     import os
 
     import pytest

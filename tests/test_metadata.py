@@ -224,13 +224,11 @@ def test_region_mean_spectrum_matches_manual():
         region_mean_spectrum(cube, [(0.1, 0.1), (0.1, 0.2), (0.2, 0.15)])
 
 
-def test_cli_metadata_and_compare_flux(tmp_path):
+def test_cli_metadata_and_compare_flux(tmp_path, capsys):
     """CLI plumbing for the metadata fix-ups and the flux comparison."""
     import json
 
-    from click.testing import CliRunner
-
-    from surfh_tpu.cli import cli
+    from surfh_tpu.cli import main as cli_main
 
     raw = tmp_path / "raw"
     filt = tmp_path / "filt"
@@ -242,42 +240,39 @@ def test_cli_metadata_and_compare_flux(tmp_path):
     )
     fits_write(str(filt / "ch3a_00001_filt.fits"), np.ones((3, 3)))
 
-    r = CliRunner().invoke(
-        cli, ["metadata", "rotation", "--raw-dir", str(raw), "--slice-dir", str(filt)]
-    )
-    assert r.exit_code == 0, r.output
-    assert json.loads(r.output)["files_updated"] == 1
+    assert cli_main(
+        ["metadata", "rotation", "--raw-dir", str(raw), "--slice-dir", str(filt)]
+    ) == 0
+    assert json.loads(capsys.readouterr().out)["files_updated"] == 1
     assert fits_open(str(filt / "ch3a_00001_filt.fits"))[0].header[
         "PA_V3"
     ] == pytest.approx(97.5)
 
-    r = CliRunner().invoke(
-        cli,
+    assert cli_main(
         ["metadata", "rank-target", "--raw-dir", str(raw), "--ref-ra", "1.0",
          "--ref-dec", "2.0"],
-    )
-    assert r.exit_code == 0, r.output
-    assert json.loads(r.output)["ranked"][0]["distance_deg"] == pytest.approx(0.0)
+    ) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["ranked"][0]["distance_deg"] == pytest.approx(0.0)
 
     rng = np.random.default_rng(0)
     fused = rng.random((6, 8, 8))
     real = rng.random((6, 8, 8))
     np.save(tmp_path / "fused.npy", fused)
     np.save(tmp_path / "real.npy", real)
-    r = CliRunner().invoke(
-        cli,
+    assert cli_main(
         ["compare-flux", "--fusion-cube", str(tmp_path / "fused.npy"),
          "--real-cube", str(tmp_path / "real.npy"), "--median-size", "0",
          "--region", "2,2;2,6;6,6;6,2",
          "--output", str(tmp_path / "flux.npz")],
-    )
-    assert r.exit_code == 0, r.output
+    ) == 0
+    assert json.loads(capsys.readouterr().out)["n_lambda"] == 6
     saved = np.load(tmp_path / "flux.npz")
     np.testing.assert_allclose(saved["mean_flux_fusion"], fused.mean(axis=(1, 2)))
     assert saved["region_spectrum"].shape == (6,)
 
 
-def test_cli_make_cube_and_flux_plot(tmp_path):
+def test_cli_make_cube_and_flux_plot(tmp_path, capsys):
     """make-cube mixes maps×templates exactly; plot_flux_comparison renders
     headless."""
     import json
@@ -285,9 +280,7 @@ def test_cli_make_cube_and_flux_plot(tmp_path):
     import matplotlib
 
     matplotlib.use("Agg")
-    from click.testing import CliRunner
-
-    from surfh_tpu.cli import cli
+    from surfh_tpu.cli import main as cli_main
     from surfh_tpu.viz import plot_flux_comparison
 
     rng = np.random.default_rng(5)
@@ -299,23 +292,21 @@ def test_cli_make_cube_and_flux_plot(tmp_path):
     np.save(tmp_path / "wavel.npy", wavel)
 
     out_npy = tmp_path / "cube.npy"
-    r = CliRunner().invoke(
-        cli, ["make-cube", "--maps", str(tmp_path / "maps.npy"),
-              "--templates", str(tmp_path / "tpl.npy"), "-o", str(out_npy)]
-    )
-    assert r.exit_code == 0, r.output
-    assert json.loads(r.output)["cube_shape"] == [9, 7, 6]
+    assert cli_main(
+        ["make-cube", "--maps", str(tmp_path / "maps.npy"),
+         "--templates", str(tmp_path / "tpl.npy"), "-o", str(out_npy)]
+    ) == 0
+    assert json.loads(capsys.readouterr().out)["cube_shape"] == [9, 7, 6]
     np.testing.assert_allclose(
         np.load(out_npy), np.einsum("mij,ml->lij", maps, tpl), rtol=1e-6
     )
 
     out_fits = tmp_path / "cube.fits"
-    r = CliRunner().invoke(
-        cli, ["make-cube", "--maps", str(tmp_path / "maps.npy"),
-              "--templates", str(tmp_path / "tpl.npy"),
-              "--wavel-axis", str(tmp_path / "wavel.npy"), "-o", str(out_fits)]
-    )
-    assert r.exit_code == 0, r.output
+    assert cli_main(
+        ["make-cube", "--maps", str(tmp_path / "maps.npy"),
+         "--templates", str(tmp_path / "tpl.npy"),
+         "--wavel-axis", str(tmp_path / "wavel.npy"), "-o", str(out_fits)]
+    ) == 0
     hdus = fits_open(str(out_fits))
     assert hdus[0].header["CRVAL3"] == pytest.approx(5.0)
     assert hdus[0].header["CDELT3"] == pytest.approx(0.125)

@@ -1,6 +1,6 @@
 """Backend equivalence: JAX pipeline vs independent NumPy reference path.
 
-The TPU rebuild's analog of the reference's `test/test_accel_accuracy.py`
+The JAX rebuild's analog of the reference's `test/test_accel_accuracy.py`
 (NumPy ↔ JAX ↔ Cython kernel cross-checks).
 """
 

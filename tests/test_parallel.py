@@ -68,8 +68,8 @@ def test_sharded_solve_reduces_residual(sharded_setup):
 def test_sharded_dispatch_cg_matches_single_device(sharded_setup):
     """The PRODUCTION solve config — dispatch-mode CG (Python loop, one
     jitted normal application per dispatch) under channel-expert sharding —
-    vs the same production solve on a single-device mesh (VERDICT r4 item 4:
-    the scaling claim covers the solver, not just the operator).
+    vs the same production solve on a single-device mesh (the scaling claim
+    covers the solver, not just the operator).
 
     Two-level contract, float64:
     (a) one application of the sharded normal operator matches the
@@ -179,7 +179,7 @@ def test_graft_dryrun_non_divisor_mesh():
 def test_sharded_window_local_matches_unsharded():
     """Flagship-mode (window_local, tables-as-arguments) channel-expert
     sharding matches the single-device tabled model on the 8-device mesh —
-    the configuration a real v5e-8 flagship run would use (tables replicated
+    the configuration a real multi-GPU flagship run would use (tables replicated
     as shard_map args, never HLO constants)."""
     import jax.numpy as jnp
 
@@ -284,7 +284,7 @@ def test_sharded_stamp_mode_matches_unsharded():
         a_sh, a_un, rtol=0, atol=1e-5 * np.abs(a_un).max())
 
 def test_shard_tables_matches_replicated():
-    """Owner-sharded tables (shard_tables=True, VERDICT r2 item 7): each
+    """Owner-sharded tables (shard_tables=True): each
     device holds only its channels' tables, and forward/adjoint/normal
     BIT-match the replicated-table sharding and the unsharded model on the
     8-device mesh.  Covers the flagship default config (stamp mode + rank

@@ -66,7 +66,7 @@ def test_cg_reconstruction_improves_with_iterations(problem):
     assert err_deep < err_long < err_short
     # measured-constant regression bounds (float64 CPU, deterministic):
     # 14.39% @ 80 iters, 10.77% @ 300 iters, PSNR 18.78 dB @ 300 — pinned
-    # with ~3% slack, not improvement-only checks (VERDICT r2 weak #6)
+    # with ~3% slack, not improvement-only checks
     assert err_long < 14.8  # percent
     assert err_deep < 11.2  # percent
     assert metrics.psnr(truth[:, mask], deep.x[:, mask]) > 18.55
@@ -94,7 +94,7 @@ def test_mmmg_agrees_with_lcg(problem):
 
 @pytest.fixture(scope="module")
 def ngc_problem():
-    """Second scene morphology (VERDICT r4 item 1b): the NGC 7023 stand-in
+    """Second scene morphology: the NGC 7023 stand-in
     — bright point sources over narrow curved filaments, sharp small-scale
     structure that stresses the reconstruction instead of flattering the
     smoothness prior like the Orion fronts do."""

@@ -1,4 +1,4 @@
-"""The chained production rehearsal (VERDICT r2 item 1): synthetic stage-2
+"""The chained production rehearsal: synthetic stage-2
 → distortion correction → median λ-filter → fusion → flux comparison, as
 ONE CLI invocation, asserted end-to-end; plus the sharded-solve cross-check
 on the 8-device mesh.
@@ -17,18 +17,21 @@ import pytest
 
 @pytest.fixture(scope="module")
 def rehearsal(tmp_path_factory):
-    from click.testing import CliRunner
+    import contextlib
+    import io
 
-    from surfh_tpu.cli import cli
+    from surfh_tpu.cli import main as cli_main
 
     work = str(tmp_path_factory.mktemp("rehearse"))
-    r = CliRunner().invoke(cli, [
-        "rehearse", "-w", work, "--band", "4a", "--pointings", "2",
-        "-np", "101", "--step", "0.1", "--lambda-subsample", "6",
-        "-hp", "1.0", "-ni", "50",
-    ])
-    assert r.exit_code == 0, r.output
-    rep = json.loads(r.output.strip().splitlines()[-1])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([
+            "rehearse", "-w", work, "--band", "4a", "--pointings", "2",
+            "-np", "101", "--step", "0.1", "--lambda-subsample", "6",
+            "-hp", "1.0", "-ni", "50",
+        ])
+    assert rc == 0
+    rep = json.loads(out.getvalue().strip().splitlines()[-1])
     return work, rep
 
 
@@ -97,14 +100,12 @@ def test_rehearsal_sharded_solve_matches(rehearsal):
         np.asarray(res.x), x_ref, rtol=0, atol=5e-3 * scale)
 
 
-def test_rehearse_seeded_from_real_header(tmp_path):
+def test_rehearse_seeded_from_real_header(tmp_path, capsys):
     """The full correction→fusion chain driven by the GENUINE geometry of
-    the vendored PDRs4All cal header (VERDICT r4 item 7): PA_V3 ≈ 68.58°,
+    the vendored PDRs4All cal header: PA_V3 ≈ 68.58°,
     TARG_RA/TARG_DEC of the Orion Bar, band derived from CHANNEL='12' +
     BAND='SHORT' — instead of the synthetic defaults (pa_v3=0)."""
-    from click.testing import CliRunner
-
-    from surfh_tpu.cli import cli
+    from surfh_tpu.cli import main as cli_main
     from surfh_tpu.preprocessing.metadata import header_geometry
 
     fixture = os.path.join(
@@ -117,13 +118,12 @@ def test_rehearse_seeded_from_real_header(tmp_path):
     assert geo["pa_v3"] == pytest.approx(68.57554349924975)
 
     work = str(tmp_path / "rehearse_hdr")
-    r = CliRunner().invoke(cli, [
+    assert cli_main([
         "rehearse", "-w", work, "--header", fixture, "--pointings", "2",
         "-np", "61", "--step", "0.17", "--lambda-subsample", "12",
         "-hp", "1.0", "-ni", "25",
-    ])
-    assert r.exit_code == 0, r.output
-    rep = json.loads(r.output.strip().splitlines()[-1])
+    ]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rep["band"] == "1a"
     assert rep["pa_v3"] == pytest.approx(geo["pa_v3"])
     assert rep["targ_ra"] == pytest.approx(geo["targ_ra"])

@@ -1,7 +1,7 @@
 """End-to-end reconstruction A/B against the reference pipeline.
 
-Closes the one contract no operator-level test can falsify (VERDICT r4
-item 1a): both sides run the *full criterion+solver semantics* — the
+Closes the one contract no operator-level test can falsify: both sides
+run the *full criterion+solver semantics* — the
 reference's `QuadCriterion_MRS.run_method('lcg')`
 (/root/reference/surfh/Simulation/fusion_CT.py:118-238, with a textbook-CG
 stand-in for the absent `qmm.lcg`, see

@@ -1,8 +1,5 @@
-"""Banded Pallas spectral blur: exactness vs the dense XLA contraction.
-
-Runs the kernel in interpreter mode on CPU; the same code path compiles to a
-Mosaic kernel on TPU.
-"""
+"""Banded spectral blur (plain-JAX slab gathers + one batched einsum):
+exactness vs the dense XLA contraction, and its plan's coverage."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +7,7 @@ import numpy as np
 import pytest
 
 from surfh_tpu.core import wblur
-from surfh_tpu.core.wblur_pallas import (
+from surfh_tpu.core.wblur_banded import (
     build_band_plan,
     wblur_sum_beta_banded,
     wblur_sum_beta_banded_reference,
@@ -56,7 +53,7 @@ def test_banded_matches_dense_interpret():
     )
     ref = wblur_sum_beta_banded_reference(windows, plan)
     np.testing.assert_allclose(ref, dense, atol=2e-4)
-    out = np.asarray(wblur_sum_beta_banded(jnp.asarray(windows), plan, interpret=True))
+    out = np.asarray(wblur_sum_beta_banded(jnp.asarray(windows), plan))
     np.testing.assert_allclose(out, dense, atol=2e-4)
 
 
@@ -76,14 +73,15 @@ def test_flagship_banded_forward_matches_dense():
 
 
 def test_banded_adjoint_matches_dense_interpret():
-    from surfh_tpu.core.wblur_pallas import build_band_plan_t, wblur_sum_beta_t_banded
+    from surfh_tpu.core.wblur_banded import build_band_plan_t, wblur_sum_beta_t_banded
 
     rng = np.random.default_rng(1)
     wpsf = _banded_wpsf()
     plan_t = build_band_plan_t(wpsf)
     y = rng.standard_normal((4, 200, 9)).astype(np.float32)
     dense = np.einsum("ska,klb->slab", y, wpsf).astype(np.float32)
-    out = np.asarray(wblur_sum_beta_t_banded(jnp.asarray(y), plan_t, interpret=True))
+    assert plan_t.KB < plan_t.K  # the transpose plan is banded too
+    out = np.asarray(wblur_sum_beta_t_banded(jnp.asarray(y), plan_t))
     np.testing.assert_allclose(out, dense, atol=2e-4)
 
 
